@@ -1,0 +1,15 @@
+"""repro_torch — the paper's scrutinized checkpointing on PyTorch and CUDA.
+
+The port of ``repro`` (JAX) to an NVIDIA H100: AD scrutiny of checkpoint
+state, the device-packed save, differential chains and the device restore,
+with the mask kernels written by hand in CUDA (``csrc/mask_pack.cu``).
+Entry points run on the card unless the caller passes ``device="cpu"``.
+"""
+
+from repro_torch.checkpoint import (CheckpointManager, Level,
+                                    load_checkpoint, restore_state,
+                                    save_checkpoint)
+from repro_torch.core import ScrutinyConfig, scrutinize
+
+__all__ = ["scrutinize", "ScrutinyConfig", "CheckpointManager", "Level",
+           "save_checkpoint", "load_checkpoint", "restore_state"]

@@ -1,0 +1,55 @@
+"""Carry state and reports across from the reference package.
+
+With these the tests give both packages the same state and the same masks:
+``state_from_numpy`` turns the reference's state, as numpy arrays, into
+the port's tensors (same names, same order), and ``report_from_masks``
+builds a port report from the reference's host masks.  Neither imports
+the reference package; the reference's bf16 arrays arrive as any array
+with a ``bfloat16`` dtype name and go through their raw bits.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch import _tree
+from repro_torch._tensors import from_host, itemsize, leaf_dtype_name
+from repro_torch.core.criticality import CriticalityReport, LeafReport
+from repro_torch.core.policy import LeafPolicy
+from repro_torch.core.regions import RegionTable
+
+
+def _leaf_from_numpy(arr, device) -> torch.Tensor:
+    arr = np.array(arr, copy=True)          # the tensor owns its memory
+    name = str(arr.dtype)
+    if name == "bfloat16":                # numpy array of an ml_dtypes bf16
+        return from_host(arr.view(np.uint16), name, device)
+    return from_host(arr, name, device)
+
+
+def state_from_numpy(tree: Any, device="cpu") -> Any:
+    """The same pytree with every array leaf as a tensor on ``device``."""
+    named, treedef = _tree.flatten_with_names(tree)
+    return _tree.unflatten(treedef, [_leaf_from_numpy(l, device)
+                                     for _, l in named])
+
+
+def report_from_masks(masks: Dict[str, np.ndarray], state: Any,
+                      policy: LeafPolicy = LeafPolicy.AD
+                      ) -> CriticalityReport:
+    """A port report holding ``masks`` (flat bool, by leaf name) for the
+    leaves of ``state``; a leaf without a mask is all critical."""
+    leaves = {}
+    for name, leaf in _tree.flatten_with_names(state)[0]:
+        dt = leaf_dtype_name(leaf)
+        n = int(np.prod(tuple(leaf.shape))) if len(leaf.shape) else 1
+        mask = np.asarray(masks.get(name, np.ones(n, bool)),
+                          bool).reshape(-1)
+        leaves[name] = LeafReport(
+            name=name, shape=tuple(leaf.shape), dtype=dt, policy=policy,
+            mask=mask, table=RegionTable.from_mask(mask, itemsize(dt)),
+            magnitude=None)
+    return CriticalityReport(leaves=leaves)

@@ -1,0 +1,73 @@
+"""Scrutinized pack and scatter of one leaf (single-device subset of
+``repro.distributed.sharding``).
+
+The reference packs a leaf that is sharded along its leading axis shard by
+shard on each shard's device.  This package runs on one device, so every
+leaf is one flat segment: ``leaf_segments`` is always ``None`` and the
+functions below pack or scatter the whole leaf; their names and returns
+match the reference so the manager reads the same.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch._tensors import from_host
+from repro_torch.kernels.mask_pack import ops as mask_ops
+from repro_torch.kernels.mask_pack.ref import BLOCK
+
+
+def leaf_segments(leaf) -> Optional[list]:
+    """Leading-axis shard tiling of a multi-device leaf; a tensor lives on
+    one device, so there is none."""
+    del leaf
+    return None
+
+
+def _flat_mask(mask, device) -> torch.Tensor:
+    if isinstance(mask, torch.Tensor):
+        return mask.reshape(-1)
+    return torch.from_numpy(np.ascontiguousarray(mask, dtype=bool)
+                            .reshape(-1)).to(device)
+
+
+def pack_sharded_payload(leaf: torch.Tensor, mask, *, block: int = BLOCK):
+    """Pack ``leaf``'s critical elements, moving only packed bytes
+    device→host.  Returns ``(payload, counts, d2h_bytes)`` with ``payload``
+    a host array in flat (C) order (bf16 as uint16 bits)."""
+    return mask_ops.pack_critical(leaf.reshape(-1),
+                                  _flat_mask(mask, leaf.device), block=block)
+
+
+def pack_sharded_payload_device(leaf: torch.Tensor, mask, *,
+                                block: int = BLOCK):
+    """Device-resident variant for the differential save path: the payload
+    stays on the leaf's device as the delta base; only the per-tile counts
+    cross D2H.  Returns ``(payload_dev, counts_h, d2h_bytes)``."""
+    packed, counts = mask_ops.pack(leaf.reshape(-1),
+                                   _flat_mask(mask, leaf.device), block=block)
+    counts_h = counts.cpu().numpy()                  # D2H: 4 B / tile
+    total = int(counts_h.sum())
+    payload = mask_ops.gather_payload(packed, counts, total=total)
+    return payload, counts_h, counts_h.nbytes
+
+
+def scatter_sharded_payload(payload: np.ndarray, mask: np.ndarray, shape,
+                            dtype: str, device, *, fill=0,
+                            block: int = BLOCK):
+    """Restore inverse of :func:`pack_sharded_payload`: move only the
+    critical ``payload`` (host array of dtype ``dtype``) and the bit-packed
+    mask H2D, expand the bits on ``device`` and scatter the payload into a
+    fill-initialized tensor (K4).  Returns ``(tensor, h2d_bytes)``."""
+    shape = tuple(shape)
+    n = int(np.prod(shape)) if shape else 1
+    mask = np.asarray(mask, bool).reshape(-1)
+    payload = np.asarray(payload).reshape(-1)
+    bits = np.packbits(mask)
+    m_dev = mask_ops.expand_mask_bits(torch.from_numpy(bits).to(device), n=n)
+    out = mask_ops.mask_scatter(from_host(payload, dtype, device), m_dev,
+                                n=n, fill=fill, block=block)
+    return out.reshape(shape), payload.nbytes + bits.nbytes

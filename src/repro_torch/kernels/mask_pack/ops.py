@@ -1,0 +1,261 @@
+"""Public mask_pack ops: shapes, padding and dispatch around the kernels.
+
+Device-resident checkpoint path (the save hot path):
+
+    payload, counts = pack_group(flats, masks, totals)   # K2, one payload
+    payload_h = fetch(payload)                          # D2H: critical bytes
+
+The restore direction mirrors it: ``mask_scatter`` (K4) moves only the
+critical payload H2D (plus the bit-packed mask, expanded on device by
+``expand_mask_bits``) and re-expands it with ``fill`` at uncritical
+positions.  ``delta_encode`` (K3) compares the current and base payloads
+as raw bytes per chunk on device and moves only changed chunks D2H.
+``threshold_bitpack`` (K1) turns scrutiny magnitudes into bit-packed
+masks on device.
+
+Dispatch rule: a tensor on the card goes to its CUDA kernel (``kernel``)
+or the call raises; a tensor on the CPU goes to the plain version
+(``ref``).  There is no fallback between the two.  The kernels move bytes,
+so every dtype is served by its width (no dtype is routed elsewhere, as
+the reference did for int and f64 leaves).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch._tensors import to_host
+from repro_torch.kernels.mask_pack import kernel as K
+from repro_torch.kernels.mask_pack import ref
+from repro_torch.kernels.mask_pack.ref import BITPACK_BLOCK, BLOCK
+
+# Chunk granularity of the delta format, in bytes — a multiple of every
+# leaf itemsize so chunks never split an element.  The host encoder
+# (checkpoint/packing) imports it from here, so host- and device-written
+# delta files stay byte-identical.
+DELTA_CHUNK_BYTES = 2048
+
+
+def _on_card(*tensors: torch.Tensor) -> bool:
+    """True for CUDA tensors, False for CPU ones; raises on anything else
+    or on a mix."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cuda"}:
+        return True
+    if kinds == {"cpu"}:
+        return False
+    raise RuntimeError(f"mask_pack: tensors on {sorted(kinds)}; the ops "
+                       "take CUDA tensors (kernels) or CPU tensors (plain "
+                       "versions), not a mix")
+
+
+def _check_block(block: int, expected: int, on_card: bool) -> None:
+    if on_card and block != expected:
+        raise ValueError(f"the CUDA kernel tiles by {expected}, not {block}")
+
+
+def pack(flat: torch.Tensor, mask: torch.Tensor, *, block: int = BLOCK):
+    """K2, tiled form.  flat: (N,) any dtype; mask: (N,) bool.  Returns
+    (packed ``(ceil(N/block), block)`` with a zero tail per tile, counts
+    ``(ceil(N/block),)`` int32)."""
+    flat = flat.reshape(-1)
+    mask = mask.reshape(-1)
+    card = _on_card(flat, mask)
+    _check_block(block, BLOCK, card)
+    if not card:
+        return ref.pack_blocks_ref(flat, mask, block)
+    nb = -(-flat.shape[0] // block)
+    packed = torch.zeros(nb * block, dtype=flat.dtype, device=flat.device)
+    counts = K.pack_into(flat.contiguous(), mask.contiguous(), packed,
+                         tiled=True)
+    return packed.view(nb, block), counts
+
+
+def gather_payload(packed: torch.Tensor, counts: torch.Tensor, *,
+                   total: int) -> torch.Tensor:
+    """Compact the per-tile critical prefixes of ``packed`` into one dense
+    (total,) payload (plain torch on either device, as in the reference)."""
+    return ref.gather_payload_ref(packed, counts, total)
+
+
+def pack_group(flats: Sequence[torch.Tensor], masks: Sequence[torch.Tensor],
+               totals: Sequence[int], *, block: int = BLOCK):
+    """Batched pack for the pipelined save engine: compacts every leaf of a
+    same-dtype group into **one** dense payload (leaf order — slice with
+    running ``totals`` offsets) plus the concatenated per-tile counts.
+
+    ``totals`` are the per-leaf critical counts from the criticality
+    report, so the payload is sized without any counts D2H.  On the card
+    each leaf is two launches (tile counts, then K2 writing straight into
+    its slice of the payload)."""
+    totals = tuple(int(t) for t in totals)
+    if len(flats) != len(masks) or len(flats) != len(totals):
+        raise ValueError("pack_group: flats/masks/totals length mismatch")
+    if not flats:
+        return (torch.zeros(0, dtype=torch.float32),
+                torch.zeros(0, dtype=torch.int32))
+    dtype, device = flats[0].dtype, flats[0].device
+    payload = torch.empty(sum(totals), dtype=dtype, device=device)
+    counts, lo = [], 0
+    for f, m, t in zip(flats, masks, totals):
+        f = f.reshape(-1)
+        m = m.reshape(-1)
+        if f.dtype != dtype:
+            raise TypeError("pack_group: leaves of one group share a dtype")
+        card = _on_card(f, m, payload)
+        _check_block(block, BLOCK, card)
+        dst = payload[lo:lo + t]
+        if card:
+            counts.append(K.pack_into(f.contiguous(), m.contiguous(), dst,
+                                      tiled=False))
+        else:
+            p, c = ref.pack_payload_ref(f, m, t, block)
+            dst.copy_(p)
+            counts.append(c)
+        lo += t
+    return payload, torch.cat(counts)
+
+
+def pack_critical(flat: torch.Tensor, mask: torch.Tensor, *,
+                  block: int = BLOCK):
+    """Device-resident save path for one flat leaf.
+
+    Returns ``(payload, counts, d2h_bytes)``: ``payload`` a host numpy array
+    of exactly the critical elements (leaf order; bf16 as uint16 bits),
+    ``counts`` the per-tile critical counts, ``d2h_bytes`` what crossed
+    device→host (payload + counts; the full leaf never moves)."""
+    packed, counts = pack(flat, mask, block=block)
+    counts_h = counts.cpu().numpy()                  # D2H: 4 B / tile
+    total = int(counts_h.sum())
+    payload_h = to_host(gather_payload(packed, counts, total=total))
+    return payload_h, counts_h, payload_h.nbytes + counts_h.nbytes
+
+
+def mask_scatter(payload: torch.Tensor, mask: torch.Tensor, *, n: int,
+                 block: int = BLOCK, fill=0.0) -> torch.Tensor:
+    """K4, the device restore expand: dense critical ``payload`` + (n,)
+    bool ``mask`` → (n,) tensor with ``fill`` (cast to the payload dtype)
+    at uncritical positions.  Per-tile starts are derived from the mask on
+    the payload's device, so the only H2D inputs are the payload and the
+    (bit-packable) mask."""
+    payload = payload.reshape(-1)
+    mask = mask.reshape(-1)
+    if mask.shape[0] != n:
+        raise ValueError(f"mask_scatter: mask has {mask.shape[0]} elements, "
+                         f"n={n}")
+    card = _on_card(payload, mask)
+    _check_block(block, BLOCK, card)
+    fill_t = ref.fill_tensor(fill, payload.dtype, payload.device)
+    if payload.shape[0] == 0:
+        return torch.empty(n, dtype=payload.dtype,
+                           device=payload.device).fill_(fill_t)
+    if not card:
+        return ref.mask_scatter_ref(payload, mask, fill_t, block)
+    return K.mask_scatter(payload.contiguous(), mask.contiguous(), fill_t)
+
+
+def threshold_bitpack(mag: torch.Tensor, tol=0.0, *,
+                      block: int = BITPACK_BLOCK):
+    """K1, the scrutiny output: bit ``i`` is ``mag[i] > tol`` in
+    ``np.packbits`` order, so the words are directly ``BitMask`` words,
+    bitmap aux and ``expand_mask_bits`` input; tail bits are 0.
+
+    Returns ``(words, counts)``: words ``(ceil(N/8),)`` uint8 and per-tile
+    int32 critical counts ``(ceil(N/block),)``.  The kernel takes the f32
+    and f64 accumulators of the scrutiny sweep."""
+    mag = mag.reshape(-1)
+    card = _on_card(mag)
+    _check_block(block, BITPACK_BLOCK, card)
+    if not card:
+        return ref.bitpack_ref(mag, tol, block)
+    return K.bitpack(mag.contiguous(), tol)
+
+
+def expand_mask_bits(bits: torch.Tensor, *, n: int) -> torch.Tensor:
+    """``np.packbits``-order uint8 words → (n,) bool mask on the words'
+    device (the mask costs 1 bit/element over PCIe instead of 1 byte)."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=bits.device)
+    x = (bits.reshape(-1, 1) >> shifts) & 1
+    return x.reshape(-1)[:n].to(torch.bool)
+
+
+# --------------------------------------------------------------------------
+# Differential (delta) encode: byte-chunk diff on device
+# --------------------------------------------------------------------------
+
+def as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """Flat uint8 view of a tensor (no copy for contiguous tensors).
+    Raises TypeError for complex leaves, as the reference's bitcast does —
+    callers then write a full entry, which keeps the files identical."""
+    if t.is_complex():
+        raise TypeError("as_bytes: complex leaves are not byte-diffed")
+    t = t.reshape(-1)
+    return t if t.dtype == torch.uint8 else t.view(torch.uint8)
+
+
+def _delta_flags(curr8: torch.Tensor, base8: torch.Tensor, chunk: int):
+    if _on_card(curr8, base8):
+        return K.delta_flags(curr8.contiguous(), base8.contiguous(), chunk)
+    return ref.delta_flags_ref(curr8, base8, chunk)
+
+
+def delta_encode(curr: torch.Tensor, base: torch.Tensor, *,
+                 chunk_bytes: int = DELTA_CHUNK_BYTES):
+    """Differential encode of ``curr`` against ``base`` (same byte size,
+    any dtype), comparing raw bytes per ``chunk_bytes`` chunk on their
+    device (K3 on the card).
+
+    Returns ``(idx, payload, d2h_bytes)``: the int32 indices of changed
+    chunks, the changed chunks' bytes (final chunk clipped to the true
+    length) as a host uint8 array, and what crossed device→host (1 B of
+    flag per chunk + the changed bytes)."""
+    c8 = as_bytes(curr)
+    b8 = as_bytes(base)
+    total = c8.shape[0]
+    if b8.shape[0] != total:
+        raise ValueError(
+            f"delta_encode: size mismatch ({total} vs {b8.shape[0]} bytes)")
+    if total == 0:
+        return np.zeros(0, np.int32), np.zeros(0, np.uint8), 0
+    flags_h = _delta_flags(c8, b8, chunk_bytes).cpu().numpy()
+    d2h = flags_h.nbytes
+    idx = np.flatnonzero(flags_h).astype(np.int32)
+    if idx.size == 0:
+        return idx, np.zeros(0, np.uint8), d2h
+    nfull = total // chunk_bytes
+    full = idx[idx < nfull]
+    parts = []
+    if full.size:
+        sel = torch.from_numpy(full.astype(np.int64)).to(c8.device)
+        parts.append(c8[:nfull * chunk_bytes].view(nfull, chunk_bytes)[sel]
+                     .reshape(-1))
+    if int(idx[-1]) >= nfull:                # the clipped tail chunk
+        parts.append(c8[nfull * chunk_bytes:])
+    payload = torch.cat(parts).cpu().numpy()
+    return idx, payload, d2h + payload.nbytes
+
+
+def pack_to_payload(packed: np.ndarray, counts: np.ndarray) -> np.ndarray:
+    """Host-side: stream counts[i] leading elements of each tile into the
+    final contiguous payload — one boolean gather."""
+    packed = np.asarray(packed)
+    counts = np.asarray(counts)
+    if not len(counts):
+        return packed.reshape(-1)[:0]
+    valid = np.arange(packed.shape[1])[None, :] < counts[:, None]
+    return packed[valid]
+
+
+def payload_to_packed(payload: np.ndarray, counts: np.ndarray,
+                      block: int) -> np.ndarray:
+    """Host-side inverse of :func:`pack_to_payload` (vectorized scatter)."""
+    payload = np.asarray(payload)
+    counts = np.asarray(counts)
+    nb = len(counts)
+    out = np.zeros((nb, block), payload.dtype)
+    valid = np.arange(block)[None, :] < counts[:, None]
+    out[valid] = payload[: int(counts.sum())]
+    return out

@@ -1,0 +1,134 @@
+"""Plain PyTorch versions of the four mask_pack kernels.
+
+Each function computes exactly what its CUDA kernel in ``kernel.py``
+computes, on tensors of any device: ``ops`` uses them for tensors that lie
+on the CPU, and the chip smoke test holds every kernel against them on the
+card.  Like the kernels they only move values (index, select, compare
+bytes) and never do arithmetic on them, so they are exact for every dtype
+and for non-finite values.
+
+Format contract (shared with the reference package): arrays are processed
+in fixed ``BLOCK``-element tiles; each tile is left-compacted (critical
+elements first, in order) and the per-tile critical count is returned.
+"""
+
+from __future__ import annotations
+
+import torch
+
+BLOCK = 512
+
+# Elements per bitpack tile (→ block/8 output bytes per tile).
+BITPACK_BLOCK = 1024
+
+_BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
+
+
+def bitpack_ref(mag: torch.Tensor, tol, block: int = BITPACK_BLOCK):
+    """K1: bit ``i`` is ``mag[i] > tol`` in ``np.packbits`` order (MSB
+    first); bits past ``N`` are 0.  Returns (words ``(ceil(N/8),)`` uint8,
+    per-tile counts ``(ceil(N/block),)`` int32)."""
+    n = mag.shape[0]
+    bits = mag > torch.as_tensor(tol, dtype=mag.dtype, device=mag.device)
+    nb = -(-n // block)
+    padded = torch.zeros(nb * block, dtype=torch.int32, device=mag.device)
+    padded[:n] = bits.to(torch.int32)
+    w = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32, device=mag.device)
+    words = (padded.view(-1, 8) * w).sum(dim=1).to(torch.uint8)
+    counts = padded.view(nb, block).sum(dim=1).to(torch.int32)
+    return words[:(n + 7) // 8], counts
+
+
+def tile_counts_ref(mask: torch.Tensor, block: int = BLOCK) -> torch.Tensor:
+    """Critical elements per ``block`` tile of a flat bool mask (int32)."""
+    n = mask.shape[0]
+    nb = -(-n // block)
+    padded = torch.zeros(nb * block, dtype=torch.int32, device=mask.device)
+    padded[:n] = mask.to(torch.int32)
+    return padded.view(nb, block).sum(dim=1).to(torch.int32)
+
+
+def pack_blocks_ref(flat: torch.Tensor, mask: torch.Tensor,
+                    block: int = BLOCK):
+    """K2, tiled form: flat (N,) values, mask (N,) bool, any N.  Returns
+    (packed ``(ceil(N/block), block)`` with a zero tail per tile, counts
+    ``(ceil(N/block),)`` int32)."""
+    n = flat.shape[0]
+    nb = -(-n // block)
+    vals = torch.zeros(nb * block, dtype=flat.dtype, device=flat.device)
+    vals[:n] = flat
+    m = torch.zeros(nb * block, dtype=torch.bool, device=flat.device)
+    m[:n] = mask
+    mb = m.view(nb, block)
+    pos = torch.cumsum(mb.to(torch.int32), dim=1) - 1       # slot in tile
+    rows, cols = torch.nonzero(mb, as_tuple=True)
+    packed = torch.zeros(nb, block, dtype=flat.dtype, device=flat.device)
+    packed[rows, pos[rows, cols]] = vals.view(nb, block)[rows, cols]
+    counts = mb.sum(dim=1).to(torch.int32)
+    return packed, counts
+
+
+def gather_payload_ref(packed: torch.Tensor, counts: torch.Tensor,
+                       total: int) -> torch.Tensor:
+    """Inter-tile gap removal: the per-tile critical prefixes of ``packed``
+    (nb, block) as one dense (total,) payload; ``total == counts.sum()``."""
+    nb, block = packed.shape
+    if total == 0:
+        return packed.reshape(-1)[:0]
+    counts = counts.to(torch.int64)
+    ends = torch.cumsum(counts, dim=0)
+    starts = ends - counts
+    j = torch.arange(total, device=packed.device)
+    tile = torch.searchsorted(ends, j, right=True)
+    slot = j - starts[tile]
+    return packed.reshape(-1)[tile * block + slot]
+
+
+def pack_payload_ref(flat: torch.Tensor, mask: torch.Tensor, total: int,
+                     block: int = BLOCK):
+    """K2, dense form (what ``pack_group`` emits per leaf): (payload of the
+    ``total`` critical values in order, per-tile counts)."""
+    packed, counts = pack_blocks_ref(flat, mask, block)
+    return gather_payload_ref(packed, counts, total), counts
+
+
+def fill_tensor(fill, dtype: torch.dtype, device) -> torch.Tensor:
+    """``fill`` cast to ``dtype`` as a 0-d tensor (a cast, as
+    ``jnp.asarray(fill, dtype)`` is in the reference)."""
+    return torch.as_tensor(fill).to(device=device, dtype=dtype)
+
+
+def mask_scatter_ref(payload: torch.Tensor, mask: torch.Tensor, fill,
+                     block: int = BLOCK) -> torch.Tensor:
+    """K4: dense critical ``payload`` + flat bool ``mask`` → (N,) array with
+    the payload in mask order and ``fill`` elsewhere.  A critical position
+    past the payload's end reads its last element (the reference's clip)."""
+    n = mask.shape[0]
+    total = payload.shape[0]
+    out = torch.empty(n, dtype=payload.dtype, device=payload.device)
+    out.fill_(fill_tensor(fill, payload.dtype, payload.device))
+    if total == 0 or n == 0:
+        return out
+    counts = tile_counts_ref(mask, block).to(torch.int64)
+    starts = torch.cumsum(counts, dim=0) - counts
+    nb = counts.shape[0]
+    m = torch.zeros(nb * block, dtype=torch.bool, device=mask.device)
+    m[:n] = mask
+    mb = m.view(nb, block)
+    slot = torch.cumsum(mb.to(torch.int64), dim=1) - 1
+    src = (starts[:, None] + slot).reshape(-1)[:n].clamp(0, total - 1)
+    out[mask] = payload[src[mask]]
+    return out
+
+
+def delta_flags_ref(curr8: torch.Tensor, base8: torch.Tensor,
+                    chunk: int) -> torch.Tensor:
+    """K3: per ``chunk``-byte chunk, int8 1 where any byte differs.  The
+    tail chunk is compared over its real bytes only."""
+    n = curr8.shape[0]
+    nc = -(-n // chunk)
+    c = torch.zeros(nc * chunk, dtype=torch.uint8, device=curr8.device)
+    b = torch.zeros(nc * chunk, dtype=torch.uint8, device=curr8.device)
+    c[:n] = curr8
+    b[:n] = base8
+    return (c.view(nc, chunk) != b.view(nc, chunk)).any(dim=1).to(torch.int8)

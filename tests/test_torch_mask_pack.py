@@ -1,0 +1,259 @@
+"""The port's mask_pack ops (K1-K4) on the CPU against the reference.
+
+On the CPU every op runs its kernel's plain version; the same inputs, made
+by numpy from a seed, go through ``repro.kernels.mask_pack.ops`` with
+``use_kernel=False`` and, for finite f32 at a few tiles, through the raw
+Pallas kernels in interpret mode.  Equality is on bytes.  The CUDA kernels
+themselves are held against the same plain versions on the card by
+``chip_smoke.py`` (and by ``test_torch_rules.py``'s ``gpu`` case).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.mask_pack import kernel as RK
+from repro.kernels.mask_pack import ops as R
+from repro_torch._tensors import to_host
+from repro_torch.convert import state_from_numpy
+from repro_torch.kernels.mask_pack import ops as T
+
+# Small shapes: one intra-op thread each leaves the cores to the other
+# test workers.
+torch.set_num_threads(1)
+
+DTYPES = ["float16", "bfloat16", "float32", "float64", "int32", "bool"]
+DENSITIES = [0.0, 0.03, 0.5, 1.0]
+SIZES = [513, 2053]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _x64():
+    """f64 rows need genuine double precision on the reference side."""
+    prev = jax.config.read("jax_enable_x64")
+    jax.config.update("jax_enable_x64", True)
+    yield
+    jax.config.update("jax_enable_x64", prev)
+
+
+def _pair(n, dtype, seed):
+    """The same values as a jax array and as a CPU tensor."""
+    rng = np.random.RandomState(seed)
+    if dtype == "bool":
+        j = jnp.asarray(rng.rand(n) < 0.5)
+    elif dtype == "int32":
+        j = jnp.asarray(rng.randint(-2 ** 30, 2 ** 30, n), jnp.int32)
+    else:
+        j = jnp.asarray(rng.randn(n) * 10, getattr(jnp, dtype))
+    return j, state_from_numpy({"x": np.asarray(j)})["x"]
+
+
+def _mask(n, frac, seed):
+    if frac in (0.0, 1.0):
+        m = np.full(n, frac == 1.0)
+    else:
+        m = np.random.RandomState(seed).rand(n) < frac
+    return m, jnp.asarray(m), torch.from_numpy(m)
+
+
+def _b(x) -> bytes:
+    if isinstance(x, torch.Tensor):
+        return to_host(x).tobytes()
+    return np.asarray(x).tobytes()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("frac", DENSITIES)
+@pytest.mark.parametrize("n", SIZES)
+def test_pack_scatter_match_reference(dtype, frac, n):
+    j, t = _pair(n, dtype, seed=n)
+    m, jm, tm = _mask(n, frac, seed=n + 1)
+    total = int(m.sum())
+    p_r, c_r = R.pack(j, jm, use_kernel=False)
+    p_t, c_t = T.pack(t, tm)
+    assert _b(p_t) == _b(p_r) and _b(c_t) == _b(c_r)
+    # the dense group payload (two leaves of one dtype)
+    j2, t2 = _pair(n // 2 + 1, dtype, seed=n + 2)
+    m2, jm2, tm2 = _mask(n // 2 + 1, frac, seed=n + 3)
+    pay_r, cnt_r = R.pack_group([j, j2], [jm, jm2], [total, int(m2.sum())],
+                                use_kernel=False)
+    pay_t, cnt_t = T.pack_group([t, t2], [tm, tm2], [total, int(m2.sum())])
+    assert _b(pay_t) == _b(pay_r) and _b(cnt_t) == _b(cnt_r)
+    # the restore expand, with a zero and a non-zero fill
+    for fill in (0, 3):
+        o_r = R.mask_scatter(pay_r[:total], jm, n=n, fill=fill,
+                             use_kernel=False)
+        o_t = T.mask_scatter(pay_t[:total], tm, n=n, fill=fill)
+        assert _b(o_t) == _b(o_r), fill
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "int32"])
+@pytest.mark.parametrize("frac", [0.03, 0.5])
+def test_pack_critical_matches_reference(dtype, frac):
+    n = 1029
+    j, t = _pair(n, dtype, seed=11)
+    m, _, tm = _mask(n, frac, seed=12)
+    h_r, hc_r, d_r = R.pack_critical(j, m, use_kernel=False)
+    h_t, hc_t, d_t = T.pack_critical(t, tm)
+    assert h_t.tobytes() == h_r.tobytes() and d_t == d_r
+    assert hc_t.tobytes() == hc_r.tobytes()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("frac", DENSITIES)
+@pytest.mark.parametrize("n", [1, 7, 8, 1023, 1025, 3001])
+def test_threshold_bitpack_matches_reference(dtype, frac, n):
+    rng = np.random.RandomState(n)
+    m, _, _ = _mask(n, frac, seed=n + 5)
+    mag = (np.abs(rng.randn(n)) * m).astype(dtype)
+    w_r, c_r = R.threshold_bitpack(jnp.asarray(mag), 0.0, use_kernel=False)
+    w_t, c_t = T.threshold_bitpack(torch.from_numpy(mag), 0.0)
+    assert _b(w_t) == _b(w_r) == np.packbits(mag > 0).tobytes()
+    assert _b(c_t) == _b(c_r)
+    assert _b(T.expand_mask_bits(w_t, n=n)) == \
+        _b(R.expand_mask_bits(w_r, n=n))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("frac", DENSITIES)
+@pytest.mark.parametrize("n", [513, 4099])
+def test_delta_encode_matches_reference(dtype, frac, n):
+    j, t = _pair(n, dtype, seed=n + 7)
+    jb, tb = _pair(n, dtype, seed=n + 8)
+    m, _, tm = _mask(n, frac, seed=n + 9)
+    # base = curr except at the changed positions
+    base_np = np.where(m, np.asarray(jb), np.asarray(j))
+    base_t = torch.where(tm, tb, t)
+    assert _b(base_t) == base_np.tobytes()
+    assert _b(T.as_bytes(t)) == _b(R.as_bytes(j))
+    i_r, p_r, d_r = R.delta_encode(j, jnp.asarray(base_np), chunk_bytes=64,
+                                   use_kernel=False)
+    i_t, p_t, d_t = T.delta_encode(t, base_t, chunk_bytes=64)
+    assert i_t.tobytes() == i_r.tobytes()
+    assert p_t.tobytes() == p_r.tobytes() and d_t == d_r
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16", "float32",
+                                   "float64"])
+@pytest.mark.parametrize("value", [np.inf, -np.inf, np.nan])
+def test_uncritical_nonfinite_values(dtype, value):
+    """An inf or NaN among the *uncritical* elements of a tile.
+
+    The reference's Pallas ``_pack_kernel`` compacts with a 0/1 permutation
+    matmul, so a single uncritical inf turns every output of its tile into
+    NaN (0 * inf = NaN); ``_scatter_kernel`` has the same hazard for a
+    non-finite critical value in its two-block window.  The port's kernels
+    move bytes, so they are held against the reference's exact
+    ``use_kernel=False`` path here."""
+    n = 1500
+    rng = np.random.RandomState(3)
+    m = rng.rand(n) < 0.33
+    vals = rng.randn(n) * 10
+    vals[np.flatnonzero(~m)[:5]] = value
+    j = jnp.asarray(vals, getattr(jnp, dtype))
+    t = state_from_numpy({"x": np.asarray(j)})["x"]
+    p_r, c_r = R.pack(j, jnp.asarray(m), use_kernel=False)
+    p_t, c_t = T.pack(t, torch.from_numpy(m))
+    assert _b(p_t) == _b(p_r) and _b(c_t) == _b(c_r)
+    total = int(m.sum())
+    pay_t, _ = T.pack_group([t], [torch.from_numpy(m)], [total])
+    assert not torch.isnan(pay_t.float()).any()
+    # the restore of a payload that itself holds non-finite values
+    crit = np.asarray(j)[m].copy()
+    crit[:3] = value
+    o_r = R.mask_scatter(jnp.asarray(crit), jnp.asarray(m), n=n, fill=0,
+                         use_kernel=False)
+    o_t = T.mask_scatter(state_from_numpy({"p": crit})["p"],
+                         torch.from_numpy(m), n=n, fill=0)
+    assert _b(o_t) == _b(o_r)
+
+
+# --------------------------------------------------------------------------
+# the raw Pallas kernels (interpret mode, finite f32, at most 16 tiles)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("frac", DENSITIES)
+def test_pallas_kernels_interpret_match_port(frac):
+    rng = np.random.RandomState(int(frac * 100))
+    n = 4 * 1024                          # 4 bitpack tiles, 8 pack tiles
+    m = rng.rand(n) < frac if 0 < frac < 1 else np.full(n, frac == 1.0)
+    vals = rng.randn(n).astype(np.float32)
+    tv, tm = torch.from_numpy(vals), torch.from_numpy(m)
+    # K1
+    mag = (np.abs(vals) * m).astype(np.float32)
+    w_k, c_k = RK.bitpack_blocks_kernel(jnp.asarray(mag), 0.0,
+                                        interpret=True)
+    w_t, c_t = T.threshold_bitpack(torch.from_numpy(mag), 0.0)
+    assert _b(w_t) == _b(w_k) and _b(c_t) == _b(c_k)
+    # K2
+    p_k, pc_k = RK.pack_blocks_kernel(jnp.asarray(vals),
+                                      jnp.asarray(m.astype(np.int8)),
+                                      interpret=True)
+    p_t, pc_t = T.pack(tv, tm)
+    assert _b(p_t) == _b(p_k) and _b(pc_t) == _b(pc_k)
+    # K4: payload + per-tile starts + mask → restored positions
+    pay_t, _ = T.pack_group([tv], [tm], [int(m.sum())])
+    total = int(m.sum())
+    npb = total // 512 + 2
+    pad = np.zeros(npb * 512, np.float32)
+    pad[:total] = vals[m]
+    counts = m.reshape(-1, 512).sum(1).astype(np.int32)
+    starts = np.cumsum(counts) - counts
+    o_k = RK.scatter_blocks_kernel(jnp.asarray(pad.reshape(npb, 512)),
+                                   jnp.asarray(starts.astype(np.int32)),
+                                   jnp.asarray(m.astype(np.int8)), fill=2.0,
+                                   interpret=True)
+    o_t = T.mask_scatter(pay_t, tm, n=n, fill=2.0)
+    assert _b(o_t) == _b(o_k)
+    # K3: chunk flags over the payloads' bytes
+    c8 = np.frombuffer(vals.tobytes(), np.uint8).copy()
+    b8 = c8.copy()
+    b8[np.flatnonzero(np.repeat(m, 4))[:64:7]] ^= 1
+    f_k = RK.delta_blocks_kernel(jnp.asarray(c8), jnp.asarray(b8), 2048,
+                                 interpret=True)
+    idx_t, _, _ = T.delta_encode(torch.from_numpy(c8),
+                                 torch.from_numpy(b8), chunk_bytes=2048)
+    np.testing.assert_array_equal(np.flatnonzero(np.asarray(f_k)), idx_t)
+
+
+def test_block_other_than_kernel_tile_is_cpu_only():
+    """The plain versions take any tile size (the reference's ``block``
+    argument); the ops accept it on the CPU and give the reference's
+    result."""
+    n = 700
+    j, t = _pair(n, "float32", seed=1)
+    m, jm, tm = _mask(n, 0.5, seed=2)
+    p_r, c_r = R.pack(j, jm, block=128, use_kernel=False)
+    p_t, c_t = T.pack(t, tm, block=128)
+    assert _b(p_t) == _b(p_r) and _b(c_t) == _b(c_r)
+
+
+def test_negative_zero_keeps_its_bytes():
+    """The port moves bytes: a critical -0.0 stays -0.0.  (The reference's
+    ``pack_blocks_ref`` places values by scatter-add onto zeros, which
+    turns a critical -0.0 into +0.0; its Pallas kernel is not exact
+    either, so this is checked on the port alone.)"""
+    x = torch.arange(1.0, 1025.0)
+    x[5] = -0.0
+    m = torch.zeros(1024, dtype=torch.bool)
+    m[:300] = True
+    p, _ = T.pack(x, m)
+    pay, _ = T.pack_group([x], [m], [300])
+    assert torch.signbit(p[0, 5]) and torch.signbit(pay[5])
+    assert torch.signbit(T.mask_scatter(pay, m, n=1024)[5])
+
+
+@pytest.mark.parametrize("frac", DENSITIES)
+def test_host_payload_helpers_match_reference(frac):
+    n = 3000
+    j, t = _pair(n, "float32", seed=21)
+    m, jm, tm = _mask(n, frac, seed=22)
+    packed, counts = R.pack(j, jm, use_kernel=False)
+    packed_t, counts_t = T.pack(t, tm)
+    pay_r = R.pack_to_payload(np.asarray(packed), np.asarray(counts))
+    pay_t = T.pack_to_payload(to_host(packed_t), to_host(counts_t))
+    assert pay_t.tobytes() == pay_r.tobytes()
+    assert T.payload_to_packed(pay_t, to_host(counts_t), 512).tobytes() == \
+        R.payload_to_packed(pay_r, np.asarray(counts), 512).tobytes()

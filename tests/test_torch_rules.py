@@ -1,0 +1,217 @@
+"""Rules of the PyTorch port: what it imports, where it runs, and that a
+kernel wrapper never quietly runs its plain version.
+
+- ``src/repro_torch/**`` and ``chip_smoke.py`` import neither ``jax`` nor
+  the reference package ``repro``.
+- Entry points run on the card unless ``device="cpu"`` is asked for: with
+  no card they raise, naming that option; a CPU tensor handed to an entry
+  point on the card raises.
+- A CUDA kernel wrapper refuses a tensor that is not on the card, and a
+  missing compiler is an error, not a fallback.
+- ``gpu`` cases run the kernels against their plain versions on the card
+  and skip where there is none.
+"""
+
+import ast
+import os
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import CheckpointManager, Level, scrutinize
+from repro_torch.checkpoint import restore_state
+from repro_torch.kernels.mask_pack import kernel as K
+from repro_torch.kernels.mask_pack import ops, ref
+
+# Small shapes: one intra-op thread each leaves the cores to the other
+# test workers.
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_no_reference(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path}: {mod}"
+
+
+def test_port_files_were_found():
+    names = {p.name for p in PORT_FILES}
+    assert {"criticality.py", "manager.py", "kernel.py",
+            "chip_smoke.py"} <= names
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_scrutinize_defaults_to_the_card(no_card):
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        scrutinize(lambda s: s["x"].sum(), {"x": torch.ones(3)})
+    rep = scrutinize(lambda s: s["x"].sum(), {"x": torch.ones(3)},
+                     device="cpu")
+    assert rep["x"].mask.all()
+
+
+def test_manager_defaults_to_the_card(no_card, tmp_path):
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        CheckpointManager([Level(str(tmp_path))])
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        CheckpointManager([Level(str(tmp_path))], device="cuda")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        restore_state({"x": torch.ones(2)}, {"x": np.ones(2, np.float32)})
+
+
+def test_cpu_tensor_on_a_card_entry_point_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(RuntimeError, match="tensor on cpu"):
+        scrutinize(lambda s: s["x"].sum(), {"x": torch.ones(3)})
+    mgr = CheckpointManager([Level(str(tmp_path))])
+    try:
+        assert mgr.device.type == "cuda"
+        with pytest.raises(RuntimeError, match="tensor on cpu"):
+            mgr.save(1, {"x": torch.ones(3)})
+    finally:
+        mgr.close()
+
+
+@pytest.mark.parametrize("opt", ["save_mode", "restore_mode",
+                                 "pipeline_engine"])
+def test_host_modes_refused_on_the_card(monkeypatch, tmp_path, opt):
+    """On the card no option moves the pack or the expand to the CPU."""
+    CheckpointManager([Level(str(tmp_path))], device="cpu",
+                      **{opt: "host"}).close()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match=f'{opt}="host"'):
+        CheckpointManager([Level(str(tmp_path))], **{opt: "host"})
+    mgr = CheckpointManager([Level(str(tmp_path))])
+    try:
+        with pytest.raises(ValueError, match='restore mode="host"'):
+            mgr.restore({"x": torch.ones(3)}, mode="host")
+    finally:
+        mgr.close()
+
+
+@pytest.mark.parametrize("call", [
+    lambda: K.bitpack(torch.ones(8), 0.0),
+    lambda: K.pack_into(torch.ones(8), torch.ones(8, dtype=torch.bool),
+                        torch.zeros(8), tiled=True),
+    lambda: K.delta_flags(torch.zeros(8, dtype=torch.uint8),
+                          torch.zeros(8, dtype=torch.uint8), 2048),
+    lambda: K.mask_scatter(torch.ones(8), torch.ones(8, dtype=torch.bool),
+                           torch.tensor(0.0)),
+], ids=["bitpack", "pack", "delta_flags", "mask_scatter"])
+def test_kernel_wrappers_refuse_host_tensors(call):
+    before = dict(K.LAUNCHES)
+    with pytest.raises(RuntimeError, match="needs a CUDA tensor"):
+        call()
+    assert K.LAUNCHES == before
+
+
+@pytest.mark.parametrize("call", [
+    lambda t: ops.threshold_bitpack(t),
+    lambda t: ops.pack(t, torch.ones(8, dtype=torch.bool, device="meta")),
+    lambda t: ops.mask_scatter(t, torch.ones(8, dtype=torch.bool,
+                                             device="meta"), n=8),
+    lambda t: ops.delta_encode(t, t),
+], ids=["threshold_bitpack", "pack", "mask_scatter", "delta_encode"])
+def test_ops_raise_on_other_devices(call):
+    with pytest.raises(RuntimeError, match="mask_pack"):
+        call(torch.ones(8, device="meta"))
+
+
+def test_ops_refuse_mixed_devices():
+    with pytest.raises(RuntimeError, match="not a mix"):
+        ops.pack(torch.ones(8), torch.ones(8, dtype=torch.bool,
+                                           device="meta"))
+
+
+def test_missing_compiler_is_an_error(monkeypatch, tmp_path):
+    monkeypatch.setattr(K, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(K, "_LIB", None)
+    monkeypatch.setattr(K.shutil, "which", lambda name: None)
+    monkeypatch.setattr(K.os.path, "exists", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        K.load_library()
+
+
+def test_plain_versions_count_no_launches():
+    K.reset_launches()
+    x = torch.randn(3000)
+    m = torch.rand(3000) < 0.3
+    ops.threshold_bitpack(x.abs())
+    ops.pack_group([x], [m], [int(m.sum())])
+    ops.mask_scatter(x[m], m, n=3000)
+    ops.delta_encode(x, x)
+    assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0)
+
+
+def test_package_exports():
+    for name in ("scrutinize", "ScrutinyConfig", "CheckpointManager",
+                 "Level", "save_checkpoint", "load_checkpoint",
+                 "restore_state"):
+        assert hasattr(repro_torch, name)
+
+
+# --------------------------------------------------------------------------
+# on the card
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _same_bytes(a, b):
+    return torch.equal(a.reshape(-1).view(torch.uint8),
+                       b.reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16,
+                                   torch.float32, torch.float64,
+                                   torch.int32, torch.bool])
+def test_kernels_match_plain_versions_on_the_card(card, dtype):
+    g = torch.Generator(device=card).manual_seed(0)
+    n = 5003
+    m = torch.rand(n, generator=g, device=card) < 0.3
+    x = (torch.rand(n, generator=g, device=card) < 0.5 if dtype == torch.bool
+         else (torch.randn(n, generator=g, device=card) * 100).to(dtype))
+    total = int(m.sum())
+    pay, _ = ops.pack_group([x], [m], [total])
+    assert _same_bytes(pay, ref.pack_payload_ref(x, m, total)[0])
+    p, c = ops.pack(x, m)
+    p_r, c_r = ref.pack_blocks_ref(x, m)
+    assert _same_bytes(p, p_r) and _same_bytes(c, c_r)
+    assert _same_bytes(ops.mask_scatter(pay, m, n=n, fill=1),
+                       ref.mask_scatter_ref(pay, m, 1))
+    c8 = ops.as_bytes(x)
+    b8 = c8.clone()
+    b8[::997] ^= 1
+    assert _same_bytes(K.delta_flags(c8, b8, 2048),
+                       ref.delta_flags_ref(c8, b8, 2048))
+    if dtype in (torch.float32, torch.float64):
+        w, wc = ops.threshold_bitpack(x.abs() * m)
+        w_r, wc_r = ref.bitpack_ref(x.abs() * m, 0.0)
+        assert _same_bytes(w, w_r) and _same_bytes(wc, wc_r)
