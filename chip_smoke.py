@@ -2,12 +2,16 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels of ``src/repro_torch/csrc`` and checks each
-against its plain PyTorch version on the card, then drives the port's main
-path (scrutinize → device-packed save → delta chain → device restore) at a
-≈2.5 GiB state, checks the hardware-independent byte counts of the
-reference bench state, and times every kernel.  Any failed check raises
-and ends the run with a non-zero exit; the last line is the device JSON.
+Builds the CUDA kernels of ``src/repro_torch/csrc`` (one nvcc per source,
+all started together) and checks each against its plain PyTorch version on
+the card, then drives the port's two paths: the paper's pipeline
+(scrutinize → device-packed save → delta chain → device restore) at a
+≈2.5 GiB state, and the serving path (phi4-mini-3.8b at full width and
+depth: prefill through flash attention, decode, KV scrutiny, base + delta
+snapshots, restore, exact continuation).  It checks the hardware-
+independent byte counts of the reference bench state and times every
+kernel.  Any failed check raises and ends the run with a non-zero exit;
+the second-to-last line is the kernels JSON, the last the device JSON.
 It needs one card and imports nothing of JAX or of the JAX package.
 """
 
@@ -19,6 +23,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -26,6 +31,11 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+from repro_torch import _tree  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as FK  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    flash_attention_ref)
 from repro_torch.kernels.mask_pack import kernel as K  # noqa: E402
 from repro_torch.kernels.mask_pack import ops, ref  # noqa: E402
 
@@ -82,10 +92,15 @@ def phase_card() -> str:
         check=True).stdout.strip().splitlines()[0]
     print(f"card: {line}")
     t0 = time.perf_counter()
-    K.load_library()
-    print(f"build: {time.perf_counter() - t0:.3f} s "
-          f"({'compiled' if K.BUILD_INFO['built'] else 'cached'} "
-          f"{os.path.basename(str(K.BUILD_INFO['so']))})")
+    with ThreadPoolExecutor(max_workers=2) as pool:     # one nvcc per source
+        for fut in [pool.submit(m.load_library) for m in (K, FK)]:
+            fut.result()
+    print(f"build: {time.perf_counter() - t0:.3f} s for both libraries")
+    for m in (K, FK):
+        info = m.BUILD_INFO
+        print(f"build: {'compiled' if info['built'] else 'cached'} "
+              f"{os.path.basename(str(info['so']))} in "
+              f"{info['seconds']:.3f} s")
     return line
 
 
@@ -156,6 +171,65 @@ def phase_kernels() -> int:
     print(f"kernels: {cases} cases bit-identical to the plain versions; "
           f"comparison launches {json.dumps(K.LAUNCHES)}")
     return cases
+
+
+# K6 cases: (B, T, H, K, D, Dv, window, causal, cap, dtype).  The first
+# eight are tests/test_kernels.py:24-33; then ragged T (causal and not),
+# Dv != D, D = 256, and window + softcap in bf16 and f16.
+FA_CASES = [
+    (1, 128, 4, 4, 64, 64, None, True, None, torch.float32),
+    (2, 256, 8, 2, 64, 64, None, True, None, torch.float32),
+    (1, 256, 4, 1, 128, 128, None, True, None, torch.float32),
+    (1, 256, 4, 4, 64, 64, 128, True, None, torch.float32),
+    (1, 256, 4, 2, 64, 64, None, True, 50.0, torch.float32),
+    (1, 256, 4, 2, 64, 64, 128, True, 50.0, torch.bfloat16),
+    (2, 128, 2, 2, 256, 256, None, True, None, torch.float32),
+    (1, 128, 4, 4, 64, 64, None, False, None, torch.float32),
+] + [(2, t, 8, 2, 128, 128, None, causal, None, dt)
+     for t in (1, 17, 200, 1000) for causal in (True, False)
+     for dt in (torch.float32, torch.bfloat16)] + [
+    (1, 300, 6, 3, 96, 32, None, True, None, torch.float16),
+    (2, 333, 4, 2, 256, 256, None, True, None, torch.bfloat16),
+    (2, 1000, 8, 4, 256, 256, 100, True, 50.0, torch.bfloat16),
+    (2, 1000, 8, 4, 128, 128, 100, True, 50.0, torch.float16),
+    (1, 777, 24, 8, 128, 128, 64, True, 30.0, torch.float32),
+]
+
+
+def fa_tol(dtype: torch.dtype) -> float:
+    """test_kernels.py:48: 2e-5 in f32 (sums in another order), 2e-2 in
+    bf16/f16 (the output's one rounding), as atol and rtol."""
+    return 2e-5 if dtype == torch.float32 else 2e-2
+
+
+def fa_err(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    """max |got - want|; raises where |Δ| > tol + tol·|want|."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    check(bool(torch.isfinite(g).all()) and bool((d <= tol + tol * w.abs())
+                                                 .all()),
+          f"K6 differs from its plain version by {float(d.max())}")
+    return float(d.max())
+
+
+def phase_flash_attention() -> int:
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(77)
+    worst = {}
+    for case in FA_CASES:
+        B, T, H, Kh, D, Dv, window, causal, cap, dt = case
+        q, k, v = (torch.randn(s, generator=gen, device=DEV).to(dt) for s in
+                   ((B, T, H, D), (B, T, Kh, D), (B, T, Kh, Dv)))
+        kw = dict(window=window, causal=causal, scale=D ** -0.5,
+                  attn_cap=cap)
+        err = fa_err(fa_ops.flash_attention(q, k, v, **kw),
+                     flash_attention_ref(q, k, v, **kw), fa_tol(dt))
+        worst[str(dt)] = max(worst.get(str(dt), 0.0), err)
+    torch.cuda.synchronize()
+    print(f"K6: {len(FA_CASES)} cases within tolerance of the plain version "
+          f"(f32 2e-5, bf16/f16 2e-2); max |err| {json.dumps(worst)}; "
+          f"comparison launches {json.dumps(FK.LAUNCHES)}")
+    return len(FA_CASES)
 
 
 # ----------------------------------------------------------------------------
@@ -345,6 +419,287 @@ def phase_bench_bytes(root: str) -> None:
 
 
 # ----------------------------------------------------------------------------
+# phase 6: the serving path, phi4-mini-3.8b at full width and depth
+# ----------------------------------------------------------------------------
+
+SERVE_ARCH = "phi4-mini-3.8b"
+SERVE_B, SERVE_T, SERVE_MAX_LEN = 4, 1024, 2048
+PRE_STEPS = 4                # decode steps before the first snapshot
+HORIZON, HEADROOM = 2, 2     # resume_fn(2), probed at pos + 2
+CONTINUE = 8                 # tokens decoded from each restored snapshot
+# Prefill logits, K6 against the plain attention, both bf16 on the card.
+# Each layer's attention output is rounded to bf16 (8 significant bits), so
+# where two correct f32 results straddle a rounding boundary they differ by
+# one ulp, and a random-init 32-layer bf16 residual stream amplifies that:
+# on the CPU, two plain attentions that differ only in summation order move
+# phi4-shaped logits (width 768) by 0.05, 0.26 and 0.53 at 4, 16 and 32
+# layers (``scripts/serve_bf16_numerics.py depth``).  So the bound is a
+# control measured in the same run: the plain
+# attention in K6's order (``plain_online``) against the plain version, and
+# K6's distance may be at most CONTROL_FACTOR times it.
+CONTROL_FACTOR = 3.0
+
+
+def plain_online(q, k, v, *, window=None, causal=True, scale=None,
+                 attn_cap=None):
+    """The control: flash_attention_ref's arithmetic in K6's order (online
+    softmax over 64-key tiles, f32), in plain torch ops."""
+    B, T, H, D = q.shape
+    Kh, Dv = k.shape[2], v.shape[-1]
+    dev = q.device
+    qf = (q.float() * scale).reshape(B, T, Kh, H // Kh, D)
+    qi = torch.arange(T, device=dev)[:, None]
+    m = torch.full((B, Kh, H // Kh, T), -2.3819763e38, device=dev)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(m.shape + (Dv,), device=dev)
+    for k0 in range(0, k.shape[1], 64):
+        kt, vt = k[:, k0:k0 + 64].float(), v[:, k0:k0 + 64].float()
+        s = torch.einsum("btkgd,bskd->bkgts", qf, kt)
+        if attn_cap is not None:
+            s = attn_cap * torch.tanh(s / attn_cap)
+        ki = torch.arange(k0, k0 + kt.shape[1], device=dev)[None, :]
+        ok = torch.ones((T, kt.shape[1]), dtype=torch.bool, device=dev)
+        if causal:
+            ok &= qi >= ki
+        if window is not None:
+            ok &= qi - ki < window
+        s = torch.where(ok, s, torch.full((), -2.3819763e38, device=dev))
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("bkgts,bskd->bkgtd", p,
+                                                   vt)
+        m = m_new
+    o = acc / l.clamp_min(1e-37)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, T, H, Dv).to(q.dtype)
+
+
+def _leaves(tree):
+    return dict(_tree.flatten_with_names(tree)[0])
+
+
+def _empty_like(tree):
+    named, treedef = _tree.flatten_with_names(tree)
+    return _tree.unflatten(treedef, [torch.empty_like(t) for _, t in named])
+
+
+def _continue(eng, state, n):
+    """Greedy decode of ``n`` tokens → (tokens (n, B), logits (n, B, V))."""
+    toks, logits = [], []
+    for _ in range(n):
+        lg, state = eng.decode(state)
+        toks.append(state["tokens"][:, 0])
+        logits.append(lg)
+    return torch.stack(toks), torch.stack(logits)
+
+
+def _changed_chunks(root: str, step: int):
+    import base64
+    from repro_torch.checkpoint import read_manifest
+    out = {}
+    for e in read_manifest(root, step)["leaves"]:
+        check(e["encoding"] == "delta", f"step {step} leaf {e['name']} is "
+              f"{e['encoding']}, not a delta")
+        out[e["name"]] = np.frombuffer(base64.b64decode(e["aux"]), np.int32)
+    return out
+
+
+def phase_serving(root: str):
+    from repro_torch import (CheckpointManager, Engine, Level, ScrutinyConfig,
+                             get_config, scrutinize)
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import count_params, init_params
+
+    cfg = get_config(SERVE_ARCH)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(2027)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, gen)
+    eng = Engine(cfg, params, SERVE_MAX_LEN, device=DEV)
+    prompt = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_T), generator=gen,
+                           device=DEV, dtype=torch.int32)
+    batch = {"tokens": prompt}
+    print(f"serving: {SERVE_ARCH} {cfg.n_layers} layers d_model "
+          f"{cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} d_ff "
+          f"{cfg.d_ff} vocab {cfg.vocab}; {count_params(params)} parameters "
+          f"({cfg.param_dtype}, compute {cfg.dtype}); B={SERVE_B} "
+          f"T={SERVE_T} max_len={SERVE_MAX_LEN}")
+
+    real_fa = attn_mod.flash_attention
+    K.reset_launches()
+    FK.reset_launches()
+    # ---- the serving path: counts from 0 here, read at the end ----------
+    (logits, state), prefill_s = synced(lambda: eng.prefill(batch))
+    check(FK.LAUNCHES["flash_attention"] == cfg.n_layers,
+          f"prefill launched K6 {FK.LAUNCHES['flash_attention']} times, not "
+          f"{cfg.n_layers}")
+    decode_ms = []
+    for _ in range(PRE_STEPS):
+        (state, _), dt = synced(lambda: eng.step(state))
+        decode_ms.append(dt * 1e3)
+    state_bytes = sum(v.nbytes for v in _leaves(state).values())
+
+    def scrutiny_fn(s):
+        pos = min(int(s["pos"]) + HEADROOM, SERVE_MAX_LEN - HORIZON)
+        probe = dict(s, pos=torch.tensor(pos, dtype=torch.int32, device=DEV))
+        return scrutinize(eng.resume_fn(HORIZON), probe,
+                          config=ScrutinyConfig(probes=2), device=DEV)
+
+    rep, scrutiny_s = synced(lambda: scrutiny_fn(state))
+    crit_slots = int(state["pos"]) + HEADROOM
+    sel = (torch.arange(SERVE_MAX_LEN, device=DEV) < crit_slots).view(
+        1, 1, -1, 1, 1)
+    for name, leaf in _leaves(state).items():
+        if name.startswith("cache/"):
+            m = rep[name].device_mask().view(leaf.shape)
+            bad = torch.nonzero(m != sel.expand(leaf.shape))
+            check(bad.numel() == 0,
+                  f"mask of {name} differs from slot < {crit_slots} at "
+                  f"{bad.shape[0]} elements, first (layer, batch, slot, "
+                  f"head, lane) {bad[:4].tolist()}")
+        else:
+            check(rep[name].all_critical, f"{name} must be all critical")
+    cache_frac = (sum(rep[n].critical for n in rep.leaves
+                      if n.startswith("cache/"))
+                  / sum(rep[n].total for n in rep.leaves
+                        if n.startswith("cache/")))
+
+    mgr = CheckpointManager([Level(root, keep_n=3, max_chain=2)],
+                            scrutiny_fn=lambda s: rep, save_mode="device",
+                            restore_mode="device", device=DEV)
+    saved = {}
+    t0 = time.perf_counter()
+    mgr.save(1, state, block=False)
+    stats1 = mgr.wait()
+    torch.cuda.synchronize()
+    save_s = time.perf_counter() - t0
+    saved[1] = state
+    disk = sum(os.path.getsize(os.path.join(root, "step_1", f))
+               for f in os.listdir(os.path.join(root, "step_1")))
+    (step, restored1), restore_s = synced(
+        lambda: mgr.restore(_empty_like(state)))
+    check(step == 1, f"restored step {step}, not 1")
+    h2d = mgr.last_restore_stats["h2d_bytes"]
+    written = {}
+    for step in (2, 3):
+        written[step] = int(state["pos"])      # the slot this step writes
+        state, _ = eng.step(state)
+        saved[step] = state
+        mgr.save(step, state, block=True)
+        check(mgr.last_save_stats["levels"][root]["kind"] == "delta",
+              f"step {step} must be a delta")
+    step, restored3 = mgr.restore(_empty_like(state))
+    check(step == 3, f"restored step {step}, not 3")
+    mgr.close()
+
+    # the deltas hold only the slots written since the step before: in a
+    # cache leaf's payload, (layer, batch) row r keeps its slots < crit
+    # in order, so slot t's K or V (row_bytes) starts at byte
+    # (r * crit + t) * row_bytes
+    rows = cfg.n_layers * SERVE_B
+    row_bytes = cfg.n_kv_heads * cfg.resolved_head_dim * 2        # bf16
+    chunk = ops.DELTA_CHUNK_BYTES
+    for step in (2, 3):
+        start = (np.arange(rows) * crit_slots + written[step]) * row_bytes
+        want = np.unique(np.concatenate([
+            np.arange(a // chunk, (a + row_bytes - 1) // chunk + 1)
+            for a in start]))
+        for name, idx in _changed_chunks(root, step).items():
+            if name.startswith("cache/"):
+                check(np.array_equal(np.sort(idx), want),
+                      f"step {step} delta of {name}: {idx.size} chunks, "
+                      f"not the {want.size} of slot {written[step]}")
+            else:
+                check(idx.size <= 1 and (name != "pos" or idx.size == 1),
+                      f"step {step} delta of {name}: {idx.tolist()}")
+
+    # restored snapshots continue exactly where the engine was
+    for step, restored in ((1, restored1), (3, restored3)):
+        toks, want = _continue(eng, saved[step], CONTINUE)
+        r_toks, r_lg = _continue(eng, restored, CONTINUE)
+        check(torch.equal(toks, r_toks) and torch.equal(want, r_lg),
+              f"decoding from restored step {step} differs")
+    del restored1, saved
+    # garbage (finite, moderate) in every uncritical slot of step 3 changes
+    # nothing ...
+    for name, leaf in _leaves(restored3).items():
+        if name.startswith("cache/"):
+            tail = leaf[:, :, crit_slots:]
+            tail.copy_(torch.randn(tail.shape, generator=gen, device=DEV))
+    check(torch.equal(_continue(eng, restored3, CONTINUE)[1], want),
+          "uncritical garbage changed the logits")
+    # ... and 8 corrupted critical elements change them
+    k0 = restored3["cache"]["seg0"]["u0"]["k"]
+    k0[0, 0, :8, 0, 0] += 1.0
+    check(not torch.equal(_continue(eng, restored3, CONTINUE)[1], want),
+          "critical corruption went unseen")
+    launches = {**K.LAUNCHES, **FK.LAUNCHES}
+    # ---- end of the serving path ---------------------------------------
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel of the serving path was never launched: {launches}")
+
+    # every prefill layer's K6 output against the plain version on the same
+    # inputs, then the logits of the plain attention and of the control
+    layer_err, layer0 = [], {}
+
+    def compare(q, k, v, **kw):
+        out = real_fa(q, k, v, **kw)
+        layer_err.append(fa_err(out, flash_attention_ref(q, k, v, **kw),
+                                fa_tol(q.dtype)))
+        layer0.setdefault("in", (q, k, v, kw))
+        return out
+
+    prefills = {}
+    for tag, impl in (("k6", compare), ("plain", flash_attention_ref),
+                      ("control", plain_online)):
+        attn_mod.flash_attention = impl
+        try:
+            prefills[tag] = eng.prefill(batch)[0].float()
+        finally:
+            attn_mod.flash_attention = real_fa
+    check(torch.equal(prefills["k6"], logits.float()),
+          "two K6 prefills of the same batch differ")
+    plain = prefills["plain"]
+
+    def dist(x):
+        d = x - plain
+        return (float(d.abs().max()), float(d.norm() / plain.norm()),
+                float((x.argmax(-1) == plain.argmax(-1)).float().mean()))
+
+    k6_d, ctl_d = dist(prefills["k6"]), dist(prefills["control"])
+    check(k6_d[0] <= CONTROL_FACTOR * ctl_d[0],
+          f"prefill logits, K6 against the plain attention: max |Δ| "
+          f"{k6_d[0]} > {CONTROL_FACTOR} x the control's {ctl_d[0]}")
+    del prefills, plain
+    peak = torch.cuda.max_memory_allocated()
+
+    print(f"serving: prefill_s={prefill_s:.4f} decode_step_ms(median of "
+          f"{PRE_STEPS})={float(np.median(decode_ms)):.3f} "
+          f"scrutiny_s={scrutiny_s:.4f} blocked_s={stats1['blocked_s']:.4f} "
+          f"save_s={save_s:.4f} restore_s={restore_s:.4f}")
+    print(f"serving: engine state {state_bytes} B; cache {cache_frac:.4%} "
+          f"critical (slot < {crit_slots}); disk(step 1) {disk} B "
+          f"({disk / state_bytes:.4%}), d2h {stats1['d2h_bytes']} B "
+          f"({stats1['d2h_bytes'] / state_bytes:.4%}), h2d {h2d} B "
+          f"({h2d / state_bytes:.4%}) of the state")
+    print(f"serving: K6 against the plain version on each prefill "
+          f"layer's inputs: max |Δ| layer 0 {layer_err[0]:.6f}, all "
+          f"{len(layer_err)} layers {max(layer_err):.6f} (tolerance 2e-2)")
+    print(f"serving: prefill logits against the plain attention (max |Δ|, "
+          f"relative L2, argmax agreement): K6 {k6_d}, control "
+          f"(plain_online) {ctl_d}; bound {CONTROL_FACTOR} x the control's "
+          f"max |Δ|")
+    print(f"serving: restored steps 1 and 3 continue {CONTINUE} tokens "
+          f"bit-identically; uncritical garbage leaves the logits unchanged, "
+          f"8 critical changes do not; peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB")
+    print(f"serving: launches {json.dumps(launches)}")
+    q, k, v, kw = layer0["in"]
+    return launches, {"q": q, "k": k, "v": v, "kw": kw}
+
+
+# ----------------------------------------------------------------------------
 # phase 5: every kernel timed at the main path's shapes
 # ----------------------------------------------------------------------------
 
@@ -380,7 +735,31 @@ def max_abs_err(x: torch.Tensor, y: torch.Tensor) -> float:
     return float((x.double() - y.double()).abs().max())
 
 
-def phase_timing(launches, main) -> list:
+PEAK_BF16_FLOP_S = 989e12   # H100 SXM data sheet, dense
+PEAK_F32_FLOP_S = 67e12     # outside the tensor cores
+
+
+def sdpa_call(q, k, v):
+    """The library yardstick for K6 (timed here, never called by the
+    port): PyTorch's fused attention on (B, H, T, D) transposes, made
+    outside the timed region; K/V are repeated to H heads there where
+    this torch has no ``enable_gqa``."""
+    F = torch.nn.functional
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    try:
+        F.scaled_dot_product_attention(qt[:, :, :2], kt[:, :, :2],
+                                       vt[:, :, :2], is_causal=True,
+                                       enable_gqa=True)
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    except TypeError:
+        g = q.shape[2] // k.shape[2]
+        kr, vr = (t.repeat_interleave(g, dim=1) for t in (kt, vt))
+        return lambda: F.scaled_dot_product_attention(qt, kr, vr,
+                                                      is_causal=True)
+
+
+def phase_timing(launches, main, serve_launches, fa_in) -> list:
     state, sel_w, rep = main["state"], main["sel_w"], main["rep"]
     w = state["w"]
     n = w.numel()
@@ -436,6 +815,35 @@ def phase_timing(launches, main) -> list:
         lambda: ref.mask_scatter_ref(curr, sel_w, 0.0),
         lambda: torch.zeros(n, device=DEV).masked_scatter_(sel_w, curr),
         4 * total + n + 4 * n)
+    del curr, base, c8, b8
+    torch.cuda.empty_cache()
+    # K6 at the serving prefill's shape, on layer 0's q/k/v of that run
+    q, k, v, kw = fa_in["q"], fa_in["k"], fa_in["v"], fa_in["kw"]
+    B, T, H, D = q.shape
+    Kh, Dv = k.shape[2], v.shape[3]
+    pairs = T * (T + 1) // 2 if kw["causal"] else T * T
+    flops = 2 * B * H * pairs * (D + Dv)
+    nbytes = (q.numel() + k.numel() + v.numel() + B * T * H * Dv) \
+        * q.element_size()
+    peak = PEAK_BF16_FLOP_S if q.dtype != torch.float32 else PEAK_F32_FLOP_S
+    k6 = fa_ops.flash_attention(q, k, v, **kw)
+    plain = flash_attention_ref(q, k, v, **kw)
+    lib = sdpa_call(q, k, v)
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    rows.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:78",
+        "launches": serve_launches["flash_attention"],
+        "max_abs_err": fa_err(k6, plain, fa_tol(q.dtype)),
+        "ms": median_ms(lambda: fa_ops.flash_attention(q, k, v, **kw)),
+        "plain_ms": median_ms(lambda: flash_attention_ref(q, k, v, **kw)),
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": median_ms(lib)})
+    print(f"K6 bound: {flops} operations ({t_ops:.4f} ms), {nbytes} bytes "
+          f"({t_bytes:.4f} ms) at B={B} T={T} H={H} K={Kh} D={D} "
+          f"{str(q.dtype)} causal={kw['causal']}")
     for r in rows:
         print(f"time {r['name']}: kernel {r['ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
@@ -447,14 +855,19 @@ def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)
+    # full f32 in every f32 matmul and convolution of the plain versions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     card = phase_card()
     phase_kernels()
+    phase_flash_attention()
     phase_setup()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         launches, main_state = phase_main_path(os.path.join(tmp, "main"))
         phase_bench_bytes(os.path.join(tmp, "bench"))
-    rows = phase_timing(launches, main_state)
+        serve_launches, fa_in = phase_serving(os.path.join(tmp, "serve"))
+    rows = phase_timing(launches, main_state, serve_launches, fa_in)
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

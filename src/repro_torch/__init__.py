@@ -2,14 +2,19 @@
 
 The port of ``repro`` (JAX) to an NVIDIA H100: AD scrutiny of checkpoint
 state, the device-packed save, differential chains and the device restore,
-with the mask kernels written by hand in CUDA (``csrc/mask_pack.cu``).
+with the mask kernels written by hand in CUDA (``csrc/mask_pack.cu``); and
+the serving path of the dense GQA models (``Engine``), whose prefill runs
+the flash-attention kernel (``csrc/flash_attention.cu``).
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
 from repro_torch.checkpoint import (CheckpointManager, Level,
                                     load_checkpoint, restore_state,
                                     save_checkpoint)
+from repro_torch.configs import get_config
 from repro_torch.core import ScrutinyConfig, scrutinize
+from repro_torch.serve import Engine
 
 __all__ = ["scrutinize", "ScrutinyConfig", "CheckpointManager", "Level",
-           "save_checkpoint", "load_checkpoint", "restore_state"]
+           "save_checkpoint", "load_checkpoint", "restore_state", "Engine",
+           "get_config"]

@@ -1,0 +1,21 @@
+"""phi4-mini-3.8b [dense] — RoPE SwiGLU GQA (arXiv:2412.08905).
+
+32L d_model=3072 24H (kv=8) d_ff=8192 vocab=200064.
+Full attention → skips long_500k.
+"""
+
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="phi4-mini-3.8b",
+    family="dense",
+    n_layers=32,
+    d_model=3072,
+    n_heads=24,
+    n_kv_heads=8,
+    d_ff=8192,
+    vocab=200064,
+    ffn="swiglu",
+    tie_embeddings=True,
+    skip_shapes=("long_500k",),
+)

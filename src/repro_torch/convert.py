@@ -1,11 +1,13 @@
 """Carry state and reports across from the reference package.
 
-With these the tests give both packages the same state and the same masks:
-``state_from_numpy`` turns the reference's state, as numpy arrays, into
-the port's tensors (same names, same order), and ``report_from_masks``
-builds a port report from the reference's host masks.  Neither imports
-the reference package; the reference's bf16 arrays arrive as any array
-with a ``bfloat16`` dtype name and go through their raw bits.
+With these the tests give both packages the same state, parameters and
+masks: ``state_from_numpy`` turns the reference's state, as numpy arrays,
+into the port's tensors (same names, same order), ``params_from_numpy``
+does the same for a model's parameters and checks them against the port's
+own ``init_params``, and ``report_from_masks`` builds a port report from
+the reference's host masks.  None imports the reference package; the
+reference's bf16 arrays arrive as any array with a ``bfloat16`` dtype name
+and go through their raw bits.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from repro_torch._tensors import from_host, itemsize, leaf_dtype_name
 from repro_torch.core.criticality import CriticalityReport, LeafReport
 from repro_torch.core.policy import LeafPolicy
 from repro_torch.core.regions import RegionTable
+from repro_torch.models.model import init_params
 
 
 def _leaf_from_numpy(arr, device) -> torch.Tensor:
@@ -35,6 +38,22 @@ def state_from_numpy(tree: Any, device="cpu") -> Any:
     named, treedef = _tree.flatten_with_names(tree)
     return _tree.unflatten(treedef, [_leaf_from_numpy(l, device)
                                      for _, l in named])
+
+
+def params_from_numpy(cfg, tree: Any, device="cpu") -> Any:
+    """The reference's parameters for ``cfg`` (numpy arrays, bf16 through
+    its bits) as the port's tensors on ``device``.  Raises when a leaf name,
+    shape or dtype differs from the port's ``init_params`` tree."""
+    want = {n: (tuple(l.shape), leaf_dtype_name(l)) for n, l in
+            _tree.flatten_with_names(init_params(cfg, None,
+                                                 device="meta"))[0]}
+    got = {n: (tuple(np.shape(l)), str(np.asarray(l).dtype)) for n, l in
+           _tree.flatten_with_names(tree)[0]}
+    if got != want:
+        diff = sorted(set(got.items()) ^ set(want.items()))
+        raise ValueError(f"params_from_numpy: {cfg.name} parameters differ "
+                         f"from the port's init_params tree: {diff[:6]}")
+    return state_from_numpy(tree, device)
 
 
 def report_from_masks(masks: Dict[str, np.ndarray], state: Any,

@@ -1,14 +1,13 @@
 """ctypes wrappers of the hand-written CUDA kernels in ``csrc/mask_pack.cu``.
 
 The library is compiled at first use with ``nvcc`` for ``sm_90a`` into
-``build/repro_torch/mask_pack-<hash>.so`` at the root of the checkout (the
-hash covers the source and the flags, so an edited source rebuilds), then
-loaded with ``ctypes``.  Nothing is built or imported at module import, so
+``build/repro_torch/mask_pack-<hash>.so`` and loaded with ``ctypes``
+(``kernels/_build.py``).  Nothing is built or imported at module import, so
 the CPU tests import this module on a machine without ``nvcc`` or a card.
 
 Every wrapper takes CUDA tensors only: it checks device, dtype, contiguity
 and shape, allocates its outputs with ``torch.empty``/``torch.zeros``,
-launches on ``torch.cuda.current_stream()``, raises if the launch returned
+launches on ``torch.cuda.currentstream_of()``, raises if the launch returned
 an error, and adds one to its entry in :data:`LAUNCHES`.  The plain
 versions live in ``ref.py``; ``ops`` picks them only for CPU tensors.
 
@@ -23,41 +22,23 @@ versions live in ``ref.py``; ``ops`` picks them only for CPU tensors.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 
+from repro_torch.kernels._build import CudaLibrary, check_launch, stream_of
+
 BLOCK = 512
 BITPACK_BLOCK = 1024
-
-_PKG = Path(__file__).resolve().parents[2]                 # src/repro_torch
-SOURCE = _PKG / "csrc" / "mask_pack.cu"
-BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 # Launches per wrapper since the last reset_launches(): a run reads these
 # to show that its main path went through the kernels.
 LAUNCHES: Dict[str, int] = {"threshold_bitpack": 0, "pack": 0,
                             "delta_flags": 0, "mask_scatter": 0}
 
-# What the last build did: {"so": path, "seconds": float, "built": bool,
-# "log": compiler output}.  Filled by load_library().
-BUILD_INFO: Dict[str, object] = {}
-
-_LOCK = threading.Lock()
-_LIB: Optional[ctypes.CDLL] = None
-
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
-_SIGNATURES = {
+LIBRARY = CudaLibrary("mask_pack", {
     "mp_bitpack_f32": (_P, ctypes.c_float, _I64, _P, _P, _P),
     "mp_bitpack_f64": (_P, ctypes.c_double, _I64, _P, _P, _P),
     "mp_tile_counts": (_P, _I64, _P, _P),
@@ -65,7 +46,11 @@ _SIGNATURES = {
     "mp_delta_flags": (_P, _P, _I64, _I64, _P, _P),
     "mp_mask_scatter": (_P, _I64, _P, _I64, _P, ctypes.c_ulonglong,
                         ctypes.c_ulonglong, _P, ctypes.c_int, _P),
-}
+})
+
+# What the last build did: {"so": path, "seconds": float, "built": bool,
+# "log": compiler output}.  Filled by load_library().
+BUILD_INFO = LIBRARY.info
 
 
 def reset_launches() -> None:
@@ -73,54 +58,9 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the mask_pack CUDA kernels are "
-                       "built with nvcc on a machine with the CUDA toolkit")
-
-
 def load_library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
-    global _LIB
-    with _LOCK:
-        if _LIB is not None:
-            return _LIB
-        src = SOURCE.read_bytes()
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
-                             ).hexdigest()[:16]
-        so = BUILD_DIR / f"mask_pack-{tag}.so"
-        t0 = time.perf_counter()
-        log = ""
-        built = not so.exists()
-        if built:
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {SOURCE}:\n{log}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        BUILD_INFO.update(so=str(so), seconds=time.perf_counter() - t0,
-                          built=built, log=log)
-        _LIB = lib
-        return lib
-
-
-def _check(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
+    return LIBRARY.load()
 
 
 def _require(t: torch.Tensor, what: str, dtypes=None) -> None:
@@ -134,10 +74,6 @@ def _require(t: torch.Tensor, what: str, dtypes=None) -> None:
         raise TypeError(f"{what}: dtype {t.dtype} not in {dtypes}")
 
 
-def _stream(t: torch.Tensor):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def bitpack(mag: torch.Tensor, tol: float):
     """K1: ``mag`` (N,) f32/f64 → (words ``(ceil(N/8),)`` uint8 in
     ``np.packbits`` order, counts ``(ceil(N/1024),)`` int32)."""
@@ -149,8 +85,8 @@ def bitpack(mag: torch.Tensor, tol: float):
                          device=mag.device)
     fn = lib.mp_bitpack_f32 if mag.dtype == torch.float32 \
         else lib.mp_bitpack_f64
-    _check(fn(mag.data_ptr(), float(tol), n, words.data_ptr(),
-              counts.data_ptr(), _stream(mag)), "threshold_bitpack")
+    check_launch(fn(mag.data_ptr(), float(tol), n, words.data_ptr(),
+                    counts.data_ptr(), stream_of(mag)), "threshold_bitpack")
     LAUNCHES["threshold_bitpack"] += 1
     return words.view(torch.uint8)[:(n + 7) // 8], counts
 
@@ -159,8 +95,8 @@ def _tile_counts(lib, mask: torch.Tensor) -> torch.Tensor:
     n = mask.shape[0]
     counts = torch.empty(-(-n // BLOCK), dtype=torch.int32,
                          device=mask.device)
-    _check(lib.mp_tile_counts(mask.data_ptr(), n, counts.data_ptr(),
-                              _stream(mask)), "tile_counts")
+    check_launch(lib.mp_tile_counts(mask.data_ptr(), n, counts.data_ptr(),
+                                    stream_of(mask)), "tile_counts")
     return counts
 
 
@@ -189,9 +125,10 @@ def pack_into(flat: torch.Tensor, mask: torch.Tensor, dst: torch.Tensor,
                               device=flat.device) * BLOCK
     else:
         starts = _exclusive_starts(counts)
-    _check(lib.mp_pack(flat.data_ptr(), mask.data_ptr(), flat.shape[0],
-                       starts.data_ptr(), dst.data_ptr(), dst.shape[0],
-                       flat.element_size(), _stream(flat)), "pack")
+    check_launch(lib.mp_pack(flat.data_ptr(), mask.data_ptr(),
+                             flat.shape[0], starts.data_ptr(),
+                             dst.data_ptr(), dst.shape[0],
+                             flat.element_size(), stream_of(flat)), "pack")
     LAUNCHES["pack"] += 1
     return counts
 
@@ -206,9 +143,9 @@ def delta_flags(curr8: torch.Tensor, base8: torch.Tensor,
     lib = load_library()
     n = curr8.shape[0]
     flags = torch.empty(-(-n // chunk), dtype=torch.int8, device=curr8.device)
-    _check(lib.mp_delta_flags(curr8.data_ptr(), base8.data_ptr(), n,
-                              int(chunk), flags.data_ptr(), _stream(curr8)),
-           "delta_flags")
+    check_launch(lib.mp_delta_flags(curr8.data_ptr(), base8.data_ptr(), n,
+                                    int(chunk), flags.data_ptr(),
+                                    stream_of(curr8)), "delta_flags")
     LAUNCHES["delta_flags"] += 1
     return flags
 
@@ -237,9 +174,10 @@ def mask_scatter(payload: torch.Tensor, mask: torch.Tensor,
     out = torch.empty(n, dtype=payload.dtype, device=payload.device)
     starts = _exclusive_starts(_tile_counts(lib, mask))
     lo, hi = _fill_words(fill)
-    _check(lib.mp_mask_scatter(payload.data_ptr(), payload.shape[0],
-                               mask.data_ptr(), n, starts.data_ptr(), lo, hi,
-                               out.data_ptr(), payload.element_size(),
-                               _stream(payload)), "mask_scatter")
+    check_launch(lib.mp_mask_scatter(payload.data_ptr(), payload.shape[0],
+                                     mask.data_ptr(), n, starts.data_ptr(),
+                                     lo, hi, out.data_ptr(),
+                                     payload.element_size(),
+                                     stream_of(payload)), "mask_scatter")
     LAUNCHES["mask_scatter"] += 1
     return out

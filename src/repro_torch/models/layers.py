@@ -1,0 +1,132 @@
+"""Shared model layers (port of ``repro.models.layers``): norms,
+projections, embeddings, RoPE and FFNs.
+
+Pure functions over nested-dict params.  Initializers draw from an
+explicit ``torch.Generator`` on its device (the reference's ``jax.random``
+keys give other numbers, so the parity tests carry parameters across with
+``convert.params_from_numpy``); on the meta device they make shapes only.
+``lead`` prepends a segment's layer count, so a segment's parameters are
+made stacked, as the reference's ``vmap`` over layer keys makes them.
+Compute dtype and param dtype come from ArchConfig.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+            "float16": torch.float16}[name]
+
+
+# --- initializers ----------------------------------------------------------
+
+def normal(gen: Optional[torch.Generator], shape: Tuple[int, ...],
+           device) -> torch.Tensor:
+    """Standard-normal f32 draws from ``gen`` on ``device``; an empty
+    tensor of that shape on the meta device."""
+    device = torch.device(device)
+    if device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device=device)
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=device)
+
+
+def dense_init(gen, d_in: int, d_out: int, dtype: torch.dtype, *,
+               lead: Tuple[int, ...] = (), device=None) -> torch.Tensor:
+    w = normal(gen, lead + (d_in, d_out), device or gen.device)
+    return w.mul_(1.0 / np.sqrt(d_in)).to(dtype)
+
+
+def embed_init(gen, vocab: int, d: int, dtype: torch.dtype, *,
+               device=None) -> torch.Tensor:
+    return normal(gen, (vocab, d), device or gen.device).mul_(0.02).to(dtype)
+
+
+# --- norms -----------------------------------------------------------------
+
+def init_norm(cfg, d: Optional[int] = None, *, lead: Tuple[int, ...] = (),
+              device):
+    d = d or cfg.d_model
+    pdt = dtype_of(cfg.param_dtype)
+    p = {"scale": torch.ones(lead + (d,), dtype=pdt, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros(lead + (d,), dtype=pdt, device=device)
+    return p
+
+
+def apply_norm(cfg, p, x: torch.Tensor) -> torch.Tensor:
+    xf = x.float()
+    if cfg.norm == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + 1e-6)
+        y = y * p["scale"].float() + p["bias"].float()
+    else:  # rmsnorm (gemma-style: scale is a +1 offset)
+        var = (xf * xf).mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(var + 1e-6)
+        y = y * (1.0 + p["scale"].float())
+    return y.to(x.dtype)
+
+
+# --- rotary embeddings -----------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    """float64, as the reference computes them; cast to f32 at use."""
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, T, H, D); positions: (B, T) int32."""
+    d = x.shape[-1]
+    freqs = torch.from_numpy(rope_freqs(d, theta).astype(np.float32)).to(
+        x.device)                                             # (D/2,)
+    angles = positions[..., None].float() * freqs             # (B, T, D/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --- FFN -------------------------------------------------------------------
+
+def init_ffn(cfg, gen, d_ff: Optional[int] = None, *,
+             lead: Tuple[int, ...] = (), device=None):
+    d_ff = d_ff or cfg.d_ff
+    pdt = dtype_of(cfg.param_dtype)
+    kw = dict(lead=lead, device=device)
+    if cfg.ffn in ("swiglu", "geglu"):
+        return {
+            "wi": dense_init(gen, cfg.d_model, d_ff, pdt, **kw),
+            "wg": dense_init(gen, cfg.d_model, d_ff, pdt, **kw),
+            "wo": dense_init(gen, d_ff, cfg.d_model, pdt, **kw),
+        }
+    return {  # plain gelu MLP (whisper)
+        "wi": dense_init(gen, cfg.d_model, d_ff, pdt, **kw),
+        "wo": dense_init(gen, d_ff, cfg.d_model, pdt, **kw),
+    }
+
+
+def apply_ffn(cfg, p, x: torch.Tensor) -> torch.Tensor:
+    dt = x.dtype
+    h = x @ p["wi"].to(dt)
+    if cfg.ffn == "swiglu":
+        h = F.silu(x @ p["wg"].to(dt)) * h
+    elif cfg.ffn == "geglu":
+        h = F.gelu(x @ p["wg"].to(dt), approximate="tanh") * h
+    else:
+        h = F.gelu(h, approximate="tanh")
+    return h @ p["wo"].to(dt)
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)

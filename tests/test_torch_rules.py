@@ -1,13 +1,13 @@
 """Rules of the PyTorch port: what it imports, where it runs, and that a
 kernel wrapper never quietly runs its plain version.
 
-- ``src/repro_torch/**`` and ``chip_smoke.py`` import neither ``jax`` nor
-  the reference package ``repro``.
+- ``src/repro_torch/**``, ``scripts/*.py`` and ``chip_smoke.py`` import
+  neither ``jax`` nor the reference package ``repro``.
 - Entry points run on the card unless ``device="cpu"`` is asked for: with
   no card they raise, naming that option; a CPU tensor handed to an entry
   point on the card raises.
 - A CUDA kernel wrapper refuses a tensor that is not on the card, and a
-  missing compiler is an error, not a fallback.
+  missing compiler is an error, not a fallback, for every kernel library.
 - ``gpu`` cases run the kernels against their plain versions on the card
   and skip where there is none.
 """
@@ -21,10 +21,16 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch import CheckpointManager, Level, scrutinize
+from repro_torch import (CheckpointManager, Engine, Level, get_config,
+                         scrutinize)
 from repro_torch.checkpoint import restore_state
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import kernel as FK
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.mask_pack import kernel as K
 from repro_torch.kernels.mask_pack import ops, ref
+from repro_torch.models import init_params
 
 # Small shapes: one intra-op thread each leaves the cores to the other
 # test workers.
@@ -32,7 +38,7 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    sorted((ROOT / "scripts").glob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_modules(path: Path):
@@ -55,8 +61,8 @@ def test_port_imports_no_jax_and_no_reference(path):
 
 def test_port_files_were_found():
     names = {p.name for p in PORT_FILES}
-    assert {"criticality.py", "manager.py", "kernel.py",
-            "chip_smoke.py"} <= names
+    assert {"criticality.py", "manager.py", "kernel.py", "_build.py",
+            "attention.py", "model.py", "engine.py", "chip_smoke.py"} <= names
 
 
 @pytest.fixture
@@ -79,6 +85,14 @@ def test_manager_defaults_to_the_card(no_card, tmp_path):
         CheckpointManager([Level(str(tmp_path))], device="cuda")
     with pytest.raises(RuntimeError, match='device="cpu"'):
         restore_state({"x": torch.ones(2)}, {"x": np.ones(2, np.float32)})
+
+
+def test_engine_defaults_to_the_card(no_card):
+    cfg = get_config("phi4-mini-3.8b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        Engine(cfg, params, 16)
+    assert Engine(cfg, params, 16, device="cpu").device.type == "cpu"
 
 
 def test_cpu_tensor_on_a_card_entry_point_raises(monkeypatch, tmp_path):
@@ -111,20 +125,27 @@ def test_host_modes_refused_on_the_card(monkeypatch, tmp_path, opt):
         mgr.close()
 
 
-@pytest.mark.parametrize("call", [
-    lambda: K.bitpack(torch.ones(8), 0.0),
-    lambda: K.pack_into(torch.ones(8), torch.ones(8, dtype=torch.bool),
-                        torch.zeros(8), tiled=True),
-    lambda: K.delta_flags(torch.zeros(8, dtype=torch.uint8),
-                          torch.zeros(8, dtype=torch.uint8), 2048),
-    lambda: K.mask_scatter(torch.ones(8), torch.ones(8, dtype=torch.bool),
-                           torch.tensor(0.0)),
-], ids=["bitpack", "pack", "delta_flags", "mask_scatter"])
-def test_kernel_wrappers_refuse_host_tensors(call):
-    before = dict(K.LAUNCHES)
+def _fa_call():
+    q = torch.ones(1, 4, 2, 8)
+    return FK.flash_attention(q, q[:, :, :1], q[:, :, :1], scale=1.0,
+                              causal=True, window=None, attn_cap=None)
+
+
+@pytest.mark.parametrize("mod,call", [
+    (K, lambda: K.bitpack(torch.ones(8), 0.0)),
+    (K, lambda: K.pack_into(torch.ones(8), torch.ones(8, dtype=torch.bool),
+                            torch.zeros(8), tiled=True)),
+    (K, lambda: K.delta_flags(torch.zeros(8, dtype=torch.uint8),
+                              torch.zeros(8, dtype=torch.uint8), 2048)),
+    (K, lambda: K.mask_scatter(torch.ones(8), torch.ones(8, dtype=torch.bool),
+                               torch.tensor(0.0))),
+    (FK, _fa_call),
+], ids=["bitpack", "pack", "delta_flags", "mask_scatter", "flash_attention"])
+def test_kernel_wrappers_refuse_host_tensors(mod, call):
+    before = dict(mod.LAUNCHES)
     with pytest.raises(RuntimeError, match="needs a CUDA tensor"):
         call()
-    assert K.LAUNCHES == before
+    assert mod.LAUNCHES == before
 
 
 @pytest.mark.parametrize("call", [
@@ -146,29 +167,41 @@ def test_ops_refuse_mixed_devices():
 
 
 def test_missing_compiler_is_an_error(monkeypatch, tmp_path):
-    monkeypatch.setattr(K, "BUILD_DIR", tmp_path)
-    monkeypatch.setattr(K, "_LIB", None)
-    monkeypatch.setattr(K.shutil, "which", lambda name: None)
-    monkeypatch.setattr(K.os.path, "exists", lambda p: False)
-    with pytest.raises(RuntimeError, match="nvcc not found"):
-        K.load_library()
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
+    for mod in (K, FK):
+        monkeypatch.setattr(mod.LIBRARY, "_lib", None)
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            mod.load_library()
 
 
 def test_plain_versions_count_no_launches():
     K.reset_launches()
+    FK.reset_launches()
     x = torch.randn(3000)
     m = torch.rand(3000) < 0.3
     ops.threshold_bitpack(x.abs())
     ops.pack_group([x], [m], [int(m.sum())])
     ops.mask_scatter(x[m], m, n=3000)
     ops.delta_encode(x, x)
+    q = x[:2400].reshape(1, 20, 4, 30)
+    fa_ops.flash_attention(q, q[:, :, :2], q[:, :, :2], window=5,
+                           attn_cap=30.0)
     assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0)
+    assert FK.LAUNCHES == {"flash_attention": 0}
+
+
+def test_flash_attention_raises_on_other_devices():
+    q = torch.ones(1, 4, 2, 8, device="meta")
+    with pytest.raises(RuntimeError, match="not a mix"):
+        fa_ops.flash_attention(q, q, q)
 
 
 def test_package_exports():
     for name in ("scrutinize", "ScrutinyConfig", "CheckpointManager",
                  "Level", "save_checkpoint", "load_checkpoint",
-                 "restore_state"):
+                 "restore_state", "Engine", "get_config"):
         assert hasattr(repro_torch, name)
 
 
@@ -215,3 +248,33 @@ def test_kernels_match_plain_versions_on_the_card(card, dtype):
         w, wc = ops.threshold_bitpack(x.abs() * m)
         w_r, wc_r = ref.bitpack_ref(x.abs() * m, 0.0)
         assert _same_bytes(w, w_r) and _same_bytes(wc, wc_r)
+
+
+# (B, Tq, Tk, H, K, D, Dv, window, causal, cap): the serving slice's shapes
+# at small T, ragged T, non-causal, D = 256 and Dv != D
+FA_CARD_CASES = [
+    (2, 128, 128, 8, 2, 128, 128, None, True, None),
+    (1, 17, 17, 4, 4, 64, 64, None, True, None),
+    (1, 200, 200, 4, 1, 64, 64, None, False, None),
+    (2, 100, 100, 2, 2, 256, 256, 16, True, 50.0),
+    (1, 70, 70, 6, 3, 96, 32, None, True, None),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("case", FA_CARD_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_flash_attention_matches_plain_version_on_the_card(card, dtype, case):
+    B, Tq, Tk, H, Kh, D, Dv, window, causal, cap = case
+    g = torch.Generator(device=card).manual_seed(1)
+    q, k, v = (torch.randn(s, generator=g, device=card).to(dtype) for s in
+               ((B, Tq, H, D), (B, Tk, Kh, D), (B, Tk, Kh, Dv)))
+    kw = dict(window=window, causal=causal, scale=D ** -0.5, attn_cap=cap)
+    FK.reset_launches()
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    assert FK.LAUNCHES == {"flash_attention": 1}
+    want = flash_attention_ref(q, k, v, **kw)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
