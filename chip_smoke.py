@@ -4,19 +4,24 @@
 
 Builds the CUDA kernels of ``src/repro_torch/csrc`` (one nvcc per source,
 all started together) and checks each against its plain PyTorch version on
-the card, then drives the port's two paths: the paper's pipeline
+the card, then drives the port's three paths: the paper's pipeline
 (scrutinize → device-packed save → delta chain → device restore) at a
-≈2.5 GiB state, and the serving path (phi4-mini-3.8b at full width and
-depth: prefill through flash attention, decode, KV scrutiny, base + delta
-snapshots, restore, exact continuation).  It checks the hardware-
-independent byte counts of the reference bench state and times every
-kernel.  Any failed check raises and ends the run with a non-zero exit;
-the second-to-last line is the kernels JSON, the last the device JSON.
-It needs one card and imports nothing of JAX or of the JAX package.
+≈2.5 GiB state; the serving path (phi4-mini-3.8b at full width and depth:
+prefill through flash attention, decode, KV scrutiny, base + delta
+snapshots, restore, exact continuation); and the training path
+(recurrentgemma-2b at full width, depth cut to fit: train steps through
+the RG-LRU scan and flash attention forward and backward, AD scrutiny of
+the training state, scrutinized and full saves, restores and
+continuations, and the launcher's own smoke run).  It checks the
+hardware-independent byte counts of the reference bench state and times
+every kernel.  Any failed check raises and ends the run with a non-zero
+exit; the second-to-last line is the kernels JSON, the last the device
+JSON.  It needs one card and imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -36,6 +41,9 @@ from repro_torch.kernels.flash_attention import kernel as FK  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_ref)
+from repro_torch.kernels.lru_scan import kernel as LK  # noqa: E402
+from repro_torch.kernels.lru_scan import ops as lru_ops  # noqa: E402
+from repro_torch.kernels.lru_scan.ref import lru_scan_ref  # noqa: E402
 from repro_torch.kernels.mask_pack import kernel as K  # noqa: E402
 from repro_torch.kernels.mask_pack import ops, ref  # noqa: E402
 
@@ -92,11 +100,11 @@ def phase_card() -> str:
         check=True).stdout.strip().splitlines()[0]
     print(f"card: {line}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:     # one nvcc per source
-        for fut in [pool.submit(m.load_library) for m in (K, FK)]:
+    with ThreadPoolExecutor(max_workers=3) as pool:     # one nvcc per source
+        for fut in [pool.submit(m.load_library) for m in (K, FK, LK)]:
             fut.result()
-    print(f"build: {time.perf_counter() - t0:.3f} s for both libraries")
-    for m in (K, FK):
+    print(f"build: {time.perf_counter() - t0:.3f} s for the three libraries")
+    for m in (K, FK, LK):
         info = m.BUILD_INFO
         print(f"build: {'compiled' if info['built'] else 'cached'} "
               f"{os.path.basename(str(info['so']))} in "
@@ -202,14 +210,110 @@ def fa_tol(dtype: torch.dtype) -> float:
     return 2e-5 if dtype == torch.float32 else 2e-2
 
 
-def fa_err(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+def fa_err(got: torch.Tensor, want: torch.Tensor, tol: float,
+           what: str = "K6") -> float:
     """max |got - want|; raises where |Δ| > tol + tol·|want|."""
     g, w = got.float(), want.float()
     d = (g - w).abs()
     check(bool(torch.isfinite(g).all()) and bool((d <= tol + tol * w.abs())
                                                  .all()),
-          f"K6 differs from its plain version by {float(d.max())}")
+          f"{what} differs from its plain version by {float(d.max())}")
     return float(d.max())
+
+
+def lru_tol(dtype: torch.dtype) -> float:
+    """K7: 1e-5 in f32 (one rounding a step, in another order), 2e-2 in
+    bf16 (the output's one rounding), as atol and rtol."""
+    return 1e-5 if dtype == torch.float32 else 2e-2
+
+
+def lru_plain_grads(a, b, h0, dh):
+    """The plain version's output and autograd's gradient through it."""
+    live = [t.detach().clone().requires_grad_() for t in
+            ([a, b] + ([] if h0 is None else [h0]))]
+    with torch.enable_grad():
+        h = lru_scan_ref(*live)
+        return h.detach(), torch.autograd.grad(h, live, dh)
+
+
+def fa_plain_grads(q, k, v, do, **kw):
+    """flash_attention_ref's output and autograd's gradient through it."""
+    live = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        o = flash_attention_ref(*live, **kw)
+        return o.detach(), torch.autograd.grad(o, live, do)
+
+
+# K7 cases: T, R, h0 and dtype, B = 2
+LRU_CASES = [(t, r, h0, dt) for t in (1, 7, 256, 1000) for r in (100, 2560)
+             for h0 in (True, False) for dt in (torch.float32,
+                                                torch.bfloat16)]
+
+
+def phase_lru_scan() -> int:
+    """K7 forward and backward against the plain version and autograd's
+    gradient through it."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(78)
+    worst = {}
+    for T, R, with_h0, dt in LRU_CASES:
+        a = torch.rand((2, T, R), generator=gen, device=DEV).to(dt)
+        b = torch.randn((2, T, R), generator=gen, device=DEV).to(dt)
+        h0 = (torch.randn((2, R), generator=gen, device=DEV).to(dt)
+              if with_h0 else None)
+        dh = torch.randn((2, T, R), generator=gen, device=DEV).to(dt)
+        h = lru_ops.lru_scan(a, b, h0)
+        grads = LK.lru_scan_backward(a, h, h0, dh)
+        h_r, grads_r = lru_plain_grads(a, b, h0, dh)
+        tol = lru_tol(dt)
+        what = f"K7 T={T} R={R} h0={with_h0} {dt}"
+        for tag, got, want in zip(("fwd", "da", "db", "dh0"),
+                                  (h,) + tuple(grads), (h_r,) + grads_r):
+            if want is not None:
+                worst[f"{dt} {tag}"] = max(worst.get(f"{dt} {tag}", 0.0),
+                                           fa_err(got, want, tol,
+                                                  f"{what} {tag}"))
+    torch.cuda.synchronize()
+    print(f"K7: {len(LRU_CASES)} cases, forward and backward within "
+          f"tolerance of the plain version (f32 1e-5, bf16 2e-2); max |err| "
+          f"{json.dumps(worst)}; comparison launches "
+          f"{json.dumps(LK.LAUNCHES)}")
+    return len(LRU_CASES)
+
+
+# K6 backward: the forward's cases, plus MQA at D = 256, Tq = 1024 and
+# window 2048 (recurrentgemma's attention) in f32 and bf16
+FA_BWD_CASES = FA_CASES + [(2, 1024, 10, 1, 256, 256, 2048, True, None, dt)
+                           for dt in (torch.float32, torch.bfloat16)]
+
+
+def phase_flash_attention_backward() -> int:
+    """K6's backward (dq, dk, dv) against autograd through
+    flash_attention_ref, at the forward's tolerances."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(79)
+    per_case = []
+    for case in FA_BWD_CASES:
+        B, T, H, Kh, D, Dv, window, causal, cap, dt = case
+        q, k, v = (torch.randn(s, generator=gen, device=DEV).to(dt) for s in
+                   ((B, T, H, D), (B, T, Kh, D), (B, T, Kh, Dv)))
+        do = torch.randn((B, T, H, Dv), generator=gen, device=DEV).to(dt)
+        kw = dict(window=window, causal=causal, scale=D ** -0.5,
+                  attn_cap=cap)
+        o, lse, o32 = FK.flash_attention(q, k, v, with_lse=True, **kw)
+        got = FK.flash_attention_backward(q, k, v, o if o32 is None else o32,
+                                          lse, do, **kw)
+        _, want = fa_plain_grads(q, k, v, do, **kw)
+        what = f"K6 backward {case}"
+        per_case.append(max(fa_err(g, w, fa_tol(dt), f"{what} {tag}")
+                            for tag, g, w in zip(("dq", "dk", "dv"), got,
+                                                 want)))
+    torch.cuda.synchronize()
+    print(f"K6 backward: {len(FA_BWD_CASES)} cases within tolerance of "
+          f"autograd through the plain version (f32 2e-5, bf16/f16 2e-2); "
+          f"max |err| per case {json.dumps([round(e, 8) for e in per_case])}"
+          f"; comparison launches {json.dumps(FK.LAUNCHES)}")
+    return len(FA_BWD_CASES)
 
 
 def phase_flash_attention() -> int:
@@ -441,9 +545,10 @@ CONTROL_FACTOR = 3.0
 
 
 def plain_online(q, k, v, *, window=None, causal=True, scale=None,
-                 attn_cap=None):
+                 attn_cap=None, stats=False):
     """The control: flash_attention_ref's arithmetic in K6's order (online
-    softmax over 64-key tiles, f32), in plain torch ops."""
+    softmax over 64-key tiles, f32), in plain torch ops.  With ``stats``
+    → (o in f32, row log-sum-exp (B, H, T)), what K6's backward reads."""
     B, T, H, D = q.shape
     Kh, Dv = k.shape[2], v.shape[-1]
     dev = q.device
@@ -471,8 +576,76 @@ def plain_online(q, k, v, *, window=None, causal=True, scale=None,
         acc = acc * corr[..., None] + torch.einsum("bkgts,bskd->bkgtd", p,
                                                    vt)
         m = m_new
-    o = acc / l.clamp_min(1e-37)[..., None]
-    return o.permute(0, 3, 1, 2, 4).reshape(B, T, H, Dv).to(q.dtype)
+    denom = l.clamp_min(1e-37)
+    o = (acc / denom[..., None]).permute(0, 3, 1, 2, 4).reshape(B, T, H, Dv)
+    if stats:
+        return o, (m + torch.log(denom)).reshape(B, H, T)
+    return o.to(q.dtype)
+
+
+class KernelOrderAttention(torch.autograd.Function):
+    """The training control: flash_attention_ref's arithmetic in K6's
+    order, forward (``plain_online``) and backward (K6's: P from the row
+    log-sum-exp, Dl = dO·O from the f32 output, dQ summed over 32-key
+    tiles in order, dK and dV per 32-key tile), in plain torch ops."""
+
+    @staticmethod
+    def forward(q, k, v, scale, causal, window, attn_cap):
+        o32, lse = plain_online(q, k, v, window=window, causal=causal,
+                                scale=scale, attn_cap=attn_cap, stats=True)
+        return o32.to(q.dtype), lse, o32
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, ctx.scale, ctx.causal, ctx.window, ctx.cap = inputs
+        _, lse, o32 = output
+        ctx.mark_non_differentiable(lse, o32)
+        ctx.save_for_backward(q, k, v, o32, lse)
+
+    @staticmethod
+    def backward(ctx, do, _dlse, _do32):
+        q, k, v, o32, lse = ctx.saved_tensors
+        B, T, H, D = q.shape
+        Kh = k.shape[2]
+        G = H // Kh
+        dev = q.device
+        qf = (q.float() * ctx.scale).reshape(B, T, Kh, G, D)
+        dof = do.float().reshape(B, T, Kh, G, -1)
+        lse = lse.reshape(B, Kh, G, T)
+        dl = (do.float() * o32).sum(-1).permute(0, 2, 1).reshape(B, Kh, G, T)
+        qi = torch.arange(T, device=dev)[:, None]
+        dq = torch.zeros(qf.shape, device=dev)
+        dk = torch.zeros(k.shape, device=dev)
+        dv = torch.zeros(v.shape, device=dev)
+        for k0 in range(0, k.shape[1], 32):
+            kt, vt = k[:, k0:k0 + 32].float(), v[:, k0:k0 + 32].float()
+            s = torch.einsum("btkgd,bskd->bkgts", qf, kt)
+            dtanh = 1.0
+            if ctx.cap is not None:
+                th = torch.tanh(s / ctx.cap)
+                s, dtanh = ctx.cap * th, 1 - th * th
+            ki = torch.arange(k0, k0 + kt.shape[1], device=dev)[None, :]
+            ok = torch.ones((T, kt.shape[1]), dtype=torch.bool, device=dev)
+            if ctx.causal:
+                ok &= qi >= ki
+            if ctx.window is not None:
+                ok &= qi - ki < ctx.window
+            p = torch.where(ok, torch.exp(s - lse[..., None]),
+                            torch.zeros((), device=dev))
+            dp = torch.einsum("btkgd,bskd->bkgts", dof, vt)
+            ds = p * (dp - dl[..., None]) * dtanh
+            dq += torch.einsum("bkgts,bskd->btkgd", ds, kt)
+            dk[:, k0:k0 + 32] = torch.einsum("bkgts,btkgd->bskd", ds, qf)
+            dv[:, k0:k0 + 32] = torch.einsum("bkgts,btkgd->bskd", p, dof)
+        dq = (dq * ctx.scale).reshape(q.shape)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None, None)
+
+
+def kernel_order_attention(q, k, v, *, window=None, causal=True, scale=None,
+                           attn_cap=None):
+    return KernelOrderAttention.apply(q, k, v, scale, causal, window,
+                                      attn_cap)[0]
 
 
 def _leaves(tree):
@@ -634,7 +807,8 @@ def phase_serving(root: str):
     k0[0, 0, :8, 0, 0] += 1.0
     check(not torch.equal(_continue(eng, restored3, CONTINUE)[1], want),
           "critical corruption went unseen")
-    launches = {**K.LAUNCHES, **FK.LAUNCHES}
+    launches = {**K.LAUNCHES,
+                "flash_attention": FK.LAUNCHES["flash_attention"]}
     # ---- end of the serving path ---------------------------------------
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the serving path was never launched: {launches}")
@@ -697,6 +871,349 @@ def phase_serving(root: str):
     print(f"serving: launches {json.dumps(launches)}")
     q, k, v, kw = layer0["in"]
     return launches, {"q": q, "k": k, "v": v, "kw": kw}
+
+
+# ----------------------------------------------------------------------------
+# phase 7: training recurrentgemma-2b at full width
+# ----------------------------------------------------------------------------
+
+TRAIN_ARCH = "recurrentgemma-2b"
+# Every published width (d_model 2560, lru_dim 2560, 10 heads, MQA, head_dim
+# 256, window 2048, vocab 256,000); depth cut to whole rrl cycles so that
+# the scrutiny of the training state fits 80 GB (PERF.md, section 4).
+TRAIN_LAYERS = 12
+TRAIN_B, TRAIN_T = 2, 1024
+TRAIN_STEPS = 5              # the straight run
+SAVE_STEP = 2                # scrutinized and full saves after this step
+SMOKE_ARCHS = ("xlstm-125m", TRAIN_ARCH)
+
+
+class KernelCheck:
+    """While active, every K7 and K6 launch (forward and backward) is held
+    against its plain version on the same inputs; the kernels' outputs go
+    on, so the run is the kernels' run.  The first call of each kind keeps
+    its inputs for phase 5."""
+
+    def __init__(self):
+        self.err = {"lru_scan": 0.0, "lru_scan_backward": 0.0,
+                    "flash_attention": 0.0, "flash_attention_backward": 0.0}
+        self.calls = dict.fromkeys(self.err, 0)
+        self.inputs = {}
+        self._b = {}
+        self._real = {}
+
+    def _note(self, name, err, inputs):
+        self.err[name] = max(self.err[name], err)
+        self.calls[name] += 1
+        if name not in self.inputs and inputs is not None:
+            # detached: the step's autograd graph must not outlive it
+            self.inputs[name] = tuple(
+                t.detach() if isinstance(t, torch.Tensor) else t
+                for t in inputs)
+
+    def lru_scan(self, a, b, h0=None):
+        h = self._real["lru_scan"](a, b, h0)
+        self._b[h.data_ptr()] = b
+        self._note("lru_scan", fa_err(h, lru_scan_ref(a, b, h0),
+                                      lru_tol(a.dtype), "K7 in training"),
+                   (a, b, h0))
+        return h
+
+    def lru_scan_backward(self, a, h, h0, dh):
+        got = self._real["lru_scan_backward"](a, h, h0, dh)
+        b = self._b.pop(h.data_ptr())
+        _, want = lru_plain_grads(a, b, h0, dh)
+        self._note("lru_scan_backward",
+                   max(fa_err(g, w, lru_tol(a.dtype),
+                              "K7 backward in training")
+                       for g, w in zip(got, want) if w is not None),
+                   (a, b, h, h0, dh))
+        return got
+
+    def flash_attention(self, q, k, v, *, with_lse=False, **kw):
+        out = self._real["flash_attention"](q, k, v, with_lse=with_lse, **kw)
+        o = out[0] if with_lse else out
+        self._note("flash_attention",
+                   fa_err(o, flash_attention_ref(q, k, v, **kw),
+                          fa_tol(q.dtype), "K6 in training"), None)
+        return out
+
+    def flash_attention_backward(self, q, k, v, o, lse, do, **kw):
+        got = self._real["flash_attention_backward"](q, k, v, o, lse, do,
+                                                     **kw)
+        _, want = fa_plain_grads(q, k, v, do, **kw)
+        self._note("flash_attention_backward",
+                   max(fa_err(g, w, fa_tol(q.dtype),
+                              "K6 backward in training")
+                       for g, w in zip(got, want)),
+                   (q, k, v, o, lse, do, kw))
+        return got
+
+    _WRAPPED = ((LK, "lru_scan"), (LK, "lru_scan_backward"),
+                (FK, "flash_attention"), (FK, "flash_attention_backward"))
+
+    def __enter__(self):
+        for mod, name in self._WRAPPED:
+            self._real[name] = getattr(mod, name)
+            setattr(mod, name, getattr(self, name))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name in self._WRAPPED:
+            setattr(mod, name, self._real[name])
+
+
+def _grad_distances(cfg, params, batch):
+    """Relative L2 distance of the whole gradient from the plain path's
+    (flash_attention_ref, lru_scan_ref): the kernels', and the control's,
+    the plain path in the kernels' summation order
+    (``KernelOrderAttention``; the plain scan is already in K7's order)."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import recurrent as rec_mod
+    from repro_torch.train.step import loss_and_grads
+
+    real = (attn_mod.flash_attention, rec_mod.lru_scan)
+
+    def grads(attn_impl, scan_impl):
+        attn_mod.flash_attention, rec_mod.lru_scan = attn_impl, scan_impl
+        try:
+            return loss_and_grads(cfg, params, batch)
+        finally:
+            attn_mod.flash_attention, rec_mod.lru_scan = real
+
+    def dist(g, ref):
+        num = den = 0.0
+        for x, y in zip(_tree.leaves(g), _tree.leaves(ref)):
+            num += float(((x.double() - y.double()) ** 2).sum())
+            den += float((y.double() ** 2).sum())
+        return (num / den) ** 0.5
+
+    loss_p, g_plain = grads(flash_attention_ref, lru_scan_ref)
+    loss_k, g = grads(*real)
+    d_kernel = dist(g, g_plain)
+    del g
+    loss_c, g = grads(kernel_order_attention, lru_scan_ref)
+    d_control = dist(g, g_plain)
+    del g, g_plain
+    torch.cuda.empty_cache()
+    return d_kernel, d_control, (float(loss_k), float(loss_p),
+                                 float(loss_c))
+
+
+def _state_bytes(tree) -> int:
+    return sum(t.nbytes for t in _tree.leaves(tree))
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(dp_, f))
+               for dp_, _, files in os.walk(path) for f in files)
+
+
+def _train(step_fn, cfg, state, steps, ms=None):
+    """Train ``steps`` steps in place → losses (float, bit-exact)."""
+    from repro_torch.data import pipeline as dp
+    losses = []
+    for _ in range(steps):
+        def one():
+            batch, state["data"] = dp.next_batch(cfg, state["data"])
+            state["params"], state["opt"], metrics = step_fn(
+                state["params"], state["opt"], batch)
+            state["step"] = state["step"] + 1
+            return metrics["loss"]
+        loss, dt = synced(one)
+        losses.append(float(loss))
+        if ms is not None:
+            ms.append(dt * 1e3)
+    return losses
+
+
+def phase_training(root: str):
+    from repro_torch import CheckpointManager, Level, get_config, scrutinize
+    from repro_torch.data import pipeline as dp
+    from repro_torch.launch import train as launch
+    from repro_torch.models import count_params
+    from repro_torch.train.optim import OptConfig
+    from repro_torch.train.step import make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    # the launcher's --preset full settings (launch/train.py)
+    oc = OptConfig(kind="adamw", lr=3e-4, warmup=100, clip_norm=1.0,
+                   decay_steps=TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = launch.build_state(cfg, oc, TRAIN_B, TRAIN_T, seed=2028,
+                               device=DEV)
+    step_fn = make_train_step(cfg, oc)
+    state_bytes = _state_bytes(state)
+    print(f"training: {TRAIN_ARCH} {cfg.n_layers} layers (pattern "
+          f"{cfg.layer_pattern}) d_model {cfg.d_model} lru_dim "
+          f"{cfg.lru_dim} heads {cfg.n_heads}/{cfg.n_kv_heads} head_dim "
+          f"{cfg.resolved_head_dim} window {cfg.window} d_ff {cfg.d_ff} "
+          f"vocab {cfg.vocab}; {count_params(state['params'])} parameters "
+          f"(f32, compute {cfg.dtype}); AdamW; B={TRAIN_B} T={TRAIN_T}; "
+          f"state {state_bytes} B")
+
+    # the whole gradient against the plain path and a control (before the
+    # path's counts start: these launches compare, they are not the path)
+    batch1, data1 = dp.next_batch(cfg, state["data"])
+    d_kernel, d_control, grad_losses = _grad_distances(cfg, state["params"],
+                                                       batch1)
+    check(d_kernel <= CONTROL_FACTOR * d_control,
+          f"gradient: relative L2 distance from the plain path {d_kernel} > "
+          f"{CONTROL_FACTOR} x the control's {d_control}")
+    del batch1, data1
+
+    K.reset_launches()
+    FK.reset_launches()
+    LK.reset_launches()
+    # ---- the training path: counts from 0 here, read at the end ----------
+    straight, step_ms = {}, []
+    with KernelCheck() as kc:                   # step 1, every launch held
+        straight[1] = _train(step_fn, cfg, state, 1)[0]
+    per_step = dict(LK.LAUNCHES, **FK.LAUNCHES)
+    check(kc.calls == per_step and per_step["lru_scan"] == 2 * TRAIN_LAYERS
+          // 3 and per_step["flash_attention_backward"] == TRAIN_LAYERS // 3,
+          f"one train step launched {per_step}, checked {kc.calls}")
+    straight[2] = _train(step_fn, cfg, state, 1, step_ms)[0]
+
+    def save(tag, scrutiny_fn):
+        with CheckpointManager([Level(os.path.join(root, tag), keep_n=1)],
+                               scrutiny_fn=scrutiny_fn, device=DEV) as mgr:
+            t0 = time.perf_counter()
+            mgr.save(SAVE_STEP, state, block=False)
+            blocked = mgr.last_save_stats["blocked_s"]
+            stats = mgr.wait()
+            torch.cuda.synchronize()
+            saves[tag] = {"blocked_s": blocked,
+                          "save_s": time.perf_counter() - t0,
+                          "d2h": stats["d2h_bytes"],
+                          "disk": _dir_bytes(os.path.join(
+                              root, tag, f"step_{SAVE_STEP}"))}
+
+    saves = {}
+    save("full", None)          # first: its clone of the whole state and
+    torch.cuda.empty_cache()    # the scrutiny never hold memory together
+    resume = launch.make_resume_fn(cfg)
+    peak_before = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rep, scrutiny_s = synced(lambda: scrutinize(resume, state, device=DEV))
+    scrutiny_peak = torch.cuda.max_memory_allocated()
+    crit = {"params": 0, "moments": 0, "other": 0}
+    for name, leaf in rep.leaves.items():
+        if name.startswith(("opt/mu/", "opt/nu/")):
+            check(leaf.critical == 0, f"{name}: {leaf.critical} critical, "
+                  "not 0 (a one-step horizon never reads the moments)")
+            crit["moments"] += leaf.total
+        else:
+            check(leaf.all_critical, f"{name} must be all critical: "
+                  f"{leaf.critical} of {leaf.total}")
+            crit["params" if name.startswith("params/") else "other"] += \
+                leaf.total
+    save("scrutinized", lambda s: rep)
+    del rep
+    torch.cuda.empty_cache()
+    # what both restores must give back exactly: all but the moments
+    keep = {n: t.clone() for n, t in _tree.flatten_with_names(state)[0]
+            if not n.startswith(("opt/mu/", "opt/nu/"))}
+    for step in range(SAVE_STEP + 1, TRAIN_STEPS + 1):
+        straight[step] = _train(step_fn, cfg, state, 1, step_ms)[0]
+    launches = dict(LK.LAUNCHES, **FK.LAUNCHES)
+    mask_launches = dict(K.LAUNCHES)
+    # ---- end of the training path ----------------------------------------
+    named, treedef = _tree.flatten_with_names(state)
+    like = _tree.unflatten(treedef, [torch.empty_like(t, device="meta")
+                                     for _, t in named])
+    del state, named
+    torch.cuda.empty_cache()
+
+    def restore(tag):
+        with CheckpointManager([Level(os.path.join(root, tag), keep_n=1)],
+                               device=DEV) as mgr:
+            (step, st), restore_s = synced(lambda: mgr.restore(like))
+            saves[tag]["restore_s"] = restore_s
+            saves[tag]["h2d"] = mgr.last_restore_stats["h2d_bytes"]
+        check(step == SAVE_STEP, f"{tag} restore gave step {step}")
+        for n, t in _tree.flatten_with_names(st)[0]:
+            if n in keep:
+                check(same_bytes(t, keep[n]), f"{tag} restore: {n} differs")
+            elif tag == "scrutinized":
+                check(not bool(t.any()), f"{tag} restore: {n} is not the "
+                      "fill")
+        return st
+
+    # full restore: the straight run's losses again
+    st = restore("full")
+    again = _train(step_fn, cfg, st, TRAIN_STEPS - SAVE_STEP)
+    want = [straight[s] for s in range(SAVE_STEP + 1, TRAIN_STEPS + 1)]
+    check(np.allclose(again, want, rtol=1e-5, atol=0),
+          f"full restore: losses {again} vs the straight run's {want}")
+    full_bitwise = again == want
+    del st
+    torch.cuda.empty_cache()
+    # scrutinized restore: parameters and integer leaves exact, the moments
+    # the fill; the next loss bitwise, the later ones as they come
+    st = restore("scrutinized")
+    scr = _train(step_fn, cfg, st, TRAIN_STEPS - SAVE_STEP)
+    check(scr[0] == want[0], f"scrutinized restore: step {SAVE_STEP + 1} "
+          f"loss {scr[0]!r} is not the straight run's {want[0]!r}")
+    gap = [s_ - w for s_, w in zip(scr, want)]
+    del st, keep, like
+    torch.cuda.empty_cache()
+    peak = max(peak_before, torch.cuda.max_memory_allocated())
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel of the training path was never launched: {launches}")
+
+    # the launcher, as a user runs it, then resumed
+    smoke = {}
+    for arch in SMOKE_ARCHS:
+        d = os.path.join(root, "launcher", arch)
+        args = ["--arch", arch, "--preset", "smoke", "--batch", "2",
+                "--seq", "64", "--ckpt-every", "10", "--scrutinize",
+                "--ckpt-dir", d, "--log-every", "1000", "--device", DEV]
+        first, first_s = synced(lambda: launch.main(args + ["--steps",
+                                                             "30"]))
+        resumed = launch.main(args + ["--steps", "40", "--resume"])
+        check(len(first) == 30 and len(resumed) == 10
+              and bool(np.isfinite(first + resumed).all()),
+              f"launcher smoke {arch}: {len(first)} + {len(resumed)} steps")
+        smoke[arch] = (first[0], first[-1], resumed[-1], first_s)
+
+    print(f"training: train_step_ms(median of steps 2-{TRAIN_STEPS})="
+          f"{float(np.median(step_ms)):.3f} losses "
+          f"{json.dumps([straight[s] for s in sorted(straight)])}")
+    print(f"training: one checked step: K7 and K6 within tolerance of the "
+          f"plain version on every launch {json.dumps(kc.calls)}, max |err| "
+          f"{json.dumps(kc.err)}")
+    print(f"training: gradient relative L2 distance from the plain path: "
+          f"kernels {d_kernel:.6e}, control (KernelOrderAttention) "
+          f"{d_control:.6e}"
+          f" (bound {CONTROL_FACTOR} x the control's); losses (kernels, "
+          f"plain, control) {json.dumps(grad_losses)}")
+    print(f"training: scrutiny of the state after step {SAVE_STEP}: "
+          f"scrutiny_s={scrutiny_s:.4f}; parameters {crit['params']} "
+          f"elements all critical, moments {crit['moments']} elements 0 "
+          f"critical, integer leaves {crit['other']} elements critical")
+    for tag, sv in saves.items():
+        print(f"training: {tag} save: blocked_s={sv['blocked_s']:.4f} "
+              f"save_s={sv['save_s']:.4f} restore_s={sv['restore_s']:.4f}; "
+              f"disk {sv['disk']} B ({sv['disk'] / state_bytes:.4%}), d2h "
+              f"{sv['d2h']} B ({sv['d2h'] / state_bytes:.4%}), h2d "
+              f"{sv['h2d']} B ({sv['h2d'] / state_bytes:.4%}) of the state")
+    print(f"training: full restore continues steps {SAVE_STEP + 1}-"
+          f"{TRAIN_STEPS} within rtol 1e-5 (bitwise: {full_bitwise}); "
+          f"scrutinized restore: step {SAVE_STEP + 1} loss bitwise equal, "
+          f"loss gap at steps {SAVE_STEP + 1}-{TRAIN_STEPS} "
+          f"{json.dumps(gap)} (the moments were dropped)")
+    print(f"training: launcher smoke (first loss, loss at 30, loss at 40 "
+          f"after --resume, seconds of the first run) {json.dumps(smoke)}")
+    print(f"training: peak device memory {peak / 2 ** 30:.2f} GiB (during "
+          f"the scrutiny {scrutiny_peak / 2 ** 30:.2f} GiB); phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    print(f"training: launches {json.dumps(launches)}; per train step "
+          f"{json.dumps(per_step)}; mask kernels {json.dumps(mask_launches)}"
+          f" (the saved leaves are all or none critical: no K2 pack)")
+    return launches, per_step, kc.inputs
 
 
 # ----------------------------------------------------------------------------
@@ -851,6 +1368,109 @@ def phase_timing(launches, main, serve_launches, fa_in) -> list:
     return rows
 
 
+def _sdpa_backward_call(q, k, v, do):
+    """The library yardstick for K6's backward (timed here, never called
+    by the port): autograd's backward of PyTorch's fused attention, causal,
+    on (B, H, T, D) transposes with ``enable_gqa``, the forward run once
+    outside the timed region."""
+    F = torch.nn.functional
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    with torch.enable_grad():
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+
+def phase_timing_training(launches, per_step, inputs) -> list:
+    """K7 forward and backward and K6's backward, timed on the inputs of
+    phase 7's first launches."""
+    rows = []
+    # the backward rows name the TPU kernel whose function they
+    # differentiate: the reference has no backward kernel for either
+    HOST = "src/repro/kernels/lru_scan/kernel.py:49"
+
+    def row(name, source, replaces, k_fn, p_fn, lib_fn, err, t_ops,
+            t_bytes):
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err, "ms": median_ms(k_fn),
+            "plain_ms": median_ms(p_fn), "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "library_ms": None if lib_fn is None else median_ms(lib_fn)})
+
+    # K7 forward: layer 0's a, b (f32 (B, T, R)); reads a, b, writes h
+    a, b, h0 = inputs["lru_scan"]
+    n = a.numel()
+    h = LK.lru_scan(a, b, h0)
+    err = fa_err(h, lru_scan_ref(a, b, h0), lru_tol(a.dtype), "K7 timed")
+    row("lru_scan", "src/repro_torch/csrc/lru_scan.cu", HOST,
+        lambda: LK.lru_scan(a, b, h0), lambda: lru_scan_ref(a, b, h0), None,
+        err, 2 * n / PEAK_F32_FLOP_S * 1e3,
+        3 * n * a.element_size() / HBM_BYTES_PER_S * 1e3)
+    # K7 backward: reads a, h, dh, writes da, db
+    a, b, h, h0, dh = inputs["lru_scan_backward"]
+    live = [t.detach().clone().requires_grad_() for t in (a, b)]
+    with torch.enable_grad():
+        h_ref = lru_scan_ref(*live)
+    got = LK.lru_scan_backward(a, h, h0, dh)
+    want = torch.autograd.grad(h_ref, live, dh, retain_graph=True)
+    err = max(fa_err(g, w, lru_tol(a.dtype), "K7 backward timed")
+              for g, w in zip(got, want))
+    row("lru_scan_backward", "src/repro_torch/csrc/lru_scan.cu", HOST,
+        lambda: LK.lru_scan_backward(a, h, h0, dh),
+        lambda: torch.autograd.grad(h_ref, live, dh, retain_graph=True),
+        None, err, 3 * n / PEAK_F32_FLOP_S * 1e3,
+        5 * n * a.element_size() / HBM_BYTES_PER_S * 1e3)
+    del live, h_ref, got, want
+    # K6 backward: the first attention layer's q, k, v, o, lse, do
+    q, k, v, o, lse, do, kw = inputs["flash_attention_backward"]
+    B, T, H, D = q.shape
+    Kh, Dv = k.shape[2], v.shape[3]
+    qi = torch.arange(T, device=DEV)[:, None]
+    ki = torch.arange(T, device=DEV)[None, :]
+    ok = qi >= ki if kw["causal"] else torch.ones((T, T), dtype=torch.bool,
+                                                  device=DEV)
+    if kw["window"] is not None:
+        ok &= qi - ki < kw["window"]
+    pairs = int(ok.sum())
+    flops = 2 * B * H * pairs * (3 * D + 2 * Dv)   # S, dP, dQ, dK, dV
+    nbytes = (2 * (q.numel() + k.numel() + v.numel()) + do.numel()) \
+        * q.element_size() + (o.numel() + lse.numel()) * 4
+    peak = PEAK_BF16_FLOP_S if q.dtype != torch.float32 else PEAK_F32_FLOP_S
+    got = FK.flash_attention_backward(q, k, v, o, lse, do, **kw)
+    live = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        o_ref = flash_attention_ref(*live, **kw)
+    want = torch.autograd.grad(o_ref, live, do, retain_graph=True)
+    err = max(fa_err(g, w, fa_tol(q.dtype), "K6 backward timed")
+              for g, w in zip(got, want))
+    check(kw["causal"] and (kw["window"] is None or kw["window"] >= T),
+          "SDPA's causal mask must be the layer's mask")
+    row("flash_attention_backward",
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:78",
+        lambda: FK.flash_attention_backward(q, k, v, o, lse, do, **kw),
+        lambda: torch.autograd.grad(o_ref, live, do, retain_graph=True),
+        _sdpa_backward_call(q, k, v, do), err,
+        flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3)
+    print(f"K7 bound: {n} elements a tensor, forward {3 * n * 4} bytes, "
+          f"backward {5 * n * 4} bytes at B={a.shape[0]} T={a.shape[1]} "
+          f"R={a.shape[2]} {a.dtype}")
+    print(f"K6 backward bound: {flops} operations ({pairs} pairs), {nbytes} "
+          f"bytes at B={B} T={T} H={H} K={Kh} D={D} Dv={Dv} {q.dtype} "
+          f"causal={kw['causal']} window={kw['window']}")
+    for r in rows:
+        print(f"time {r['name']}: kernel {r['ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"library {r['library_ms']}, launches {r['launches']} "
+              f"({per_step[r['name']]} per train step)")
+    return rows
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -862,12 +1482,18 @@ def main() -> None:
     card = phase_card()
     phase_kernels()
     phase_flash_attention()
+    phase_lru_scan()
+    phase_flash_attention_backward()
     phase_setup()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         launches, main_state = phase_main_path(os.path.join(tmp, "main"))
         phase_bench_bytes(os.path.join(tmp, "bench"))
         serve_launches, fa_in = phase_serving(os.path.join(tmp, "serve"))
-    rows = phase_timing(launches, main_state, serve_launches, fa_in)
+        rows = phase_timing(launches, main_state, serve_launches, fa_in)
+        del main_state, fa_in
+        train_launches, per_step, train_in = phase_training(
+            os.path.join(tmp, "train"))
+    rows += phase_timing_training(train_launches, per_step, train_in)
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

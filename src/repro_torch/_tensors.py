@@ -117,6 +117,16 @@ def resolve_device(device: Optional[Union[str, torch.device]]
     return dev
 
 
+def alloc_device(device: Optional[Union[str, torch.device]]
+                 ) -> torch.device:
+    """Where an entry point that only allocates (a cache, a state from host
+    arrays) puts its tensors: :func:`resolve_device`'s rule, and
+    ``"meta"`` for shapes only."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
+
+
 def check_on(leaf: Any, device: torch.device, what: str) -> None:
     """Raise when a tensor lies on another device type than ``device``."""
     if isinstance(leaf, torch.Tensor) and leaf.device.type != device.type:

@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 from repro_torch import _tree
-from repro_torch._tensors import from_host, itemsize, leaf_dtype_name
+from repro_torch._tensors import (alloc_device, from_host, itemsize,
+                                  leaf_dtype_name)
 from repro_torch.core.criticality import CriticalityReport, LeafReport
 from repro_torch.core.policy import LeafPolicy
 from repro_torch.core.regions import RegionTable
@@ -33,17 +34,21 @@ def _leaf_from_numpy(arr, device) -> torch.Tensor:
     return from_host(arr, name, device)
 
 
-def state_from_numpy(tree: Any, device="cpu") -> Any:
-    """The same pytree with every array leaf as a tensor on ``device``."""
+def state_from_numpy(tree: Any, device=None) -> Any:
+    """The same pytree with every array leaf as a tensor on ``device``: the
+    card unless the caller asks for the CPU."""
+    device = alloc_device(device)
     named, treedef = _tree.flatten_with_names(tree)
     return _tree.unflatten(treedef, [_leaf_from_numpy(l, device)
                                      for _, l in named])
 
 
-def params_from_numpy(cfg, tree: Any, device="cpu") -> Any:
+def params_from_numpy(cfg, tree: Any, device=None) -> Any:
     """The reference's parameters for ``cfg`` (numpy arrays, bf16 through
-    its bits) as the port's tensors on ``device``.  Raises when a leaf name,
-    shape or dtype differs from the port's ``init_params`` tree."""
+    its bits) as the port's tensors on ``device`` (the card unless the
+    caller asks for the CPU).  Raises when a leaf name, shape or dtype
+    differs from the port's ``init_params`` tree."""
+    device = alloc_device(device)
     want = {n: (tuple(l.shape), leaf_dtype_name(l)) for n, l in
             _tree.flatten_with_names(init_params(cfg, None,
                                                  device="meta"))[0]}

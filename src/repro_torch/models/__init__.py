@@ -1,8 +1,9 @@
-"""Model substrate of the port: the dense GQA family, serving part."""
+"""Model substrate of the port: layer planning, the training loss,
+prefill and decode."""
 
 from repro_torch.models.model import (compute_params, count_params,
                                       decode_step, init_cache, init_params,
-                                      prefill)
+                                      loss_fn, prefill)
 
 __all__ = ["compute_params", "count_params", "decode_step", "init_cache",
-           "init_params", "prefill"]
+           "init_params", "loss_fn", "prefill"]

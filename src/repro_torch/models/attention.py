@@ -24,6 +24,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch._tensors import alloc_device
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import (apply_rope, dense_init, dtype_of,
                                        softcap)
@@ -126,7 +127,10 @@ def attention_train(cfg, p, x, positions, *, window=None, causal=True):
 
 
 def init_cache(cfg, batch: int, max_len: int, *, window=None, dtype=None,
-               lead: Tuple[int, ...] = (), device="cpu"):
+               lead: Tuple[int, ...] = (), device=None):
+    """Zero K/V caches on ``device``: the card unless the caller asks for
+    the CPU."""
+    device = alloc_device(device)
     dt = dtype or dtype_of(cfg.dtype)
     hd = cfg.resolved_head_dim
     S = min(window, max_len) if window else max_len

@@ -1,5 +1,5 @@
-"""Model assembly, serving part (port of ``repro.models.model``): layer
-planning, init, prefill and decode for the dense GQA family.
+"""Model assembly (port of ``repro.models.model``): layer planning, init,
+the training loss, prefill and decode.
 
 The tree layout is the reference's: layers are planned into homogeneous
 *segments* and each segment's parameters and caches are stacked over its
@@ -9,13 +9,17 @@ directories carry the reference's leaf names and shapes, and converted
 parameters need no renaming.  The reference's ``lax.scan`` over a segment
 becomes a Python loop over per-layer views (``_unstack``).
 
-Served: flavours ``g`` (global) and ``l`` (windowed) attention with a
-dense FFN, text input (phi4-mini, gemma-7b, gemma2-27b, qwen1.5-32b).
-Recurrent layers, MLA, MoE, encoder-decoder and M-RoPE raise
-``NotImplementedError``: they come with the training slice (ROADMAP
-Queue 1 item 9), as do ``loss_fn`` and ``_chunked_loss``.
+Ported: flavours ``g`` (global) and ``l`` (windowed) attention, ``r``
+(RG-LRU), ``m`` (mLSTM) and ``s`` (sLSTM), with a dense FFN or none, and
+text input (phi4-mini, gemma-7b, gemma2-27b, qwen1.5-32b,
+recurrentgemma-2b, xlstm-125m).  MoE, MLA, encoder-decoder and M-RoPE
+raise ``NotImplementedError``: they come with a later slice (ROADMAP
+Queue 1 item 9).  Rematerialization (``cfg.remat``) is the reference's XLA
+knob and is not ported: the backward keeps every layer's activations.
 
 Batch contracts:
+  train:   {"tokens": (B,T) int32, "labels": (B,T) int32, ["mask"]} →
+           mean next-token cross-entropy (``loss_fn``)
   prefill: {"tokens": (B,T) int32} → (last-position logits, cache)
   decode:  tokens (B,1) int32 + cache + pos (0-d int32) → (logits, cache)
 """
@@ -28,7 +32,9 @@ import numpy as np
 import torch
 
 from repro_torch import _tree
+from repro_torch._tensors import alloc_device
 from repro_torch.models import attention as attn
+from repro_torch.models import recurrent as rec
 from repro_torch.models.layers import (apply_ffn, apply_norm, dtype_of,
                                        embed_init, init_ffn, init_norm,
                                        softcap)
@@ -55,22 +61,16 @@ def layer_kinds(cfg) -> List[Kind]:
 
 
 def _check_served(cfg) -> None:
-    """Raise for what the serving slice does not port yet."""
-    what = []
-    flavours = sorted({fl for fl, _ in layer_kinds(cfg)} - {"g", "l"})
-    if flavours:
-        what.append(f"layer flavours {flavours}")
-    for name, on in (("MoE", cfg.moe is not None),
-                     ("MLA", cfg.mla is not None),
-                     ("encoder-decoder", cfg.enc_dec),
-                     ("M-RoPE", cfg.mrope)):
-        if on:
-            what.append(name)
+    """Raise for what the port does not have yet."""
+    what = [name for name, on in (("MoE", cfg.moe is not None),
+                                  ("MLA", cfg.mla is not None),
+                                  ("encoder-decoder", cfg.enc_dec),
+                                  ("M-RoPE", cfg.mrope)) if on]
     if what:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(what)} not ported yet; repro_torch "
-            "serves the dense GQA family (g/l attention, dense FFN) and "
-            "the rest comes with the training slice (ROADMAP Queue 1 "
+            "runs the g/l/r/m/s layer flavours with a dense FFN and text "
+            "input, and the rest comes with a later slice (ROADMAP Queue 1 "
             "item 9)")
 
 
@@ -120,13 +120,20 @@ def _stack(layers: List[Any]):
 # block init/apply
 # --------------------------------------------------------------------------
 
+def _init_mixer(cfg, flavour: str, gen, **kw):
+    if flavour in ("g", "l"):
+        return attn.init_attention(cfg, gen, **kw)
+    return {"r": rec.init_rglru, "m": rec.init_mlstm,
+            "s": rec.init_slstm}[flavour](cfg, gen, **kw)
+
+
 def init_block(cfg, kind: Kind, gen, *, lead: Tuple[int, ...] = (),
                device=None) -> Dict[str, Any]:
-    ff = kind[1]
+    fl, ff = kind
     device = device or gen.device
     p: Dict[str, Any] = {
         "norm1": init_norm(cfg, lead=lead, device=device),
-        "mixer": attn.init_attention(cfg, gen, lead=lead, device=device),
+        "mixer": _init_mixer(cfg, fl, gen, lead=lead, device=device),
     }
     if cfg.post_norm:
         p["norm1_post"] = init_norm(cfg, lead=lead, device=device)
@@ -148,11 +155,19 @@ def _ffn_half(cfg, p, x):
     return x
 
 
+def _mixer_train(cfg, kind, p, x, positions):
+    fl = kind[0]
+    if fl in ("g", "l"):
+        window = cfg.window if fl == "l" else None
+        return attn.attention_train(cfg, p, x, positions, window=window)
+    return {"r": rec.rglru_train, "m": rec.mlstm_train,
+            "s": rec.slstm_train}[fl](cfg, p, x)
+
+
 def apply_block_train(cfg, kind, p, x, positions):
     """Block forward over a whole sequence (no cache)."""
-    window = cfg.window if kind[0] == "l" else None
     h = apply_norm(cfg, p["norm1"], x)
-    h = attn.attention_train(cfg, p["mixer"], h, positions, window=window)
+    h = _mixer_train(cfg, kind, p["mixer"], h, positions)
     if cfg.post_norm:
         h = apply_norm(cfg, p["norm1_post"], h)
     return _ffn_half(cfg, p, x + h)
@@ -160,19 +175,35 @@ def apply_block_train(cfg, kind, p, x, positions):
 
 # --- decode ----------------------------------------------------------------
 
+_STATE_INIT = {"r": rec.rglru_init_state, "m": rec.mlstm_init_state,
+               "s": rec.slstm_init_state}
+_DECODE = {"r": rec.rglru_decode, "m": rec.mlstm_decode,
+           "s": rec.slstm_decode}
+_PREFILL = {"r": rec.rglru_prefill, "m": rec.mlstm_prefill,
+            "s": rec.slstm_prefill}
+
+
 def init_layer_cache(cfg, kind: Kind, batch: int, max_len: int, *,
-                     lead: Tuple[int, ...] = (), device="cpu"):
-    window = cfg.window if kind[0] == "l" else None
-    return attn.init_cache(cfg, batch, max_len, window=window, lead=lead,
-                           device=device)
+                     lead: Tuple[int, ...] = (), device=None):
+    device = alloc_device(device)
+    fl = kind[0]
+    if fl in ("g", "l"):
+        window = cfg.window if fl == "l" else None
+        return attn.init_cache(cfg, batch, max_len, window=window, lead=lead,
+                               device=device)
+    return _STATE_INIT[fl](cfg, batch, lead=lead, device=device)
 
 
 def apply_block_decode(cfg, kind, p, x, cache, pos):
-    window = cfg.window if kind[0] == "l" else None
+    fl = kind[0]
     h = apply_norm(cfg, p["norm1"], x)
-    h, upd = attn.attention_decode(cfg, p["mixer"], h,
-                                   {k: cache[k] for k in ("k", "v")}, pos,
-                                   window=window)
+    if fl in ("g", "l"):
+        window = cfg.window if fl == "l" else None
+        h, upd = attn.attention_decode(cfg, p["mixer"], h,
+                                       {k: cache[k] for k in ("k", "v")},
+                                       pos, window=window)
+    else:
+        h, upd = _DECODE[fl](cfg, p["mixer"], h, cache)
     new_cache = dict(cache)
     new_cache.update(upd)
     if cfg.post_norm:
@@ -207,18 +238,24 @@ def init_params(cfg, gen, *, device=None) -> Dict[str, Any]:
 
 def compute_params(cfg, params) -> Dict[str, Any]:
     """``params`` with every matrix (and qkv bias) cast once to the compute
-    dtype, norm parameters as they are.  The model casts each matrix to
-    the compute dtype at use, so this copy gives the same numbers and
-    spares a fresh cast per matmul; an autograd trace through the model
-    (scrutiny) then saves no cast copy of the weights either."""
+    dtype, norm parameters and ``_F32_AT_USE`` as they are.  The model
+    casts each matrix to the compute dtype at use, so this copy gives the
+    same numbers and spares a fresh cast per matmul; an autograd trace
+    through the model (scrutiny) then saves no cast copy of the weights
+    either."""
     dt = dtype_of(cfg.dtype)
     named, treedef = _tree.flatten_with_names(params)
     out = []
     for name, leaf in named:
         keys = name.split("/")
         norm = any(k.startswith("norm") or k == "final_norm" for k in keys)
-        out.append(leaf if norm else leaf.to(dt))
+        out.append(leaf if norm or keys[-1] in _F32_AT_USE else leaf.to(dt))
     return _tree.unflatten(treedef, out)
+
+
+# Recurrent parameters the model reads in f32 (``.float()``), not in the
+# compute dtype: compute_params keeps them as they are.
+_F32_AT_USE = frozenset({"lambda", "rz", "ri", "rf", "ro"})
 
 
 # --------------------------------------------------------------------------
@@ -250,11 +287,60 @@ def lm_head_logits(cfg, params, h):
 
 
 # --------------------------------------------------------------------------
+# forward: train loss
+# --------------------------------------------------------------------------
+
+_LOSS_CHUNK = 512
+
+
+def _chunked_loss(cfg, params, h, labels, mask):
+    """Cross-entropy without materializing (B, T, V) at once: the
+    reference's scan over 512-position chunks as a loop.  Each chunk casts
+    the head's weight afresh, as the reference's scan body does, so the
+    chunks' gradients of a tied embedding add up in f32."""
+    T = h.shape[1]
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, T, _LOSS_CHUNK):
+        logits = lm_head_logits(cfg, params,
+                                h[:, c0:c0 + _LOSS_CHUNK]).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            labels[:, c0:c0 + _LOSS_CHUNK, None].long())[..., 0]
+        tot = tot + ((lse - gold) * mask[:, c0:c0 + _LOSS_CHUNK]).sum()
+    return tot / torch.clamp(mask.sum(), min=1.0)
+
+
+def _run_layers(cfg, params, x, positions):
+    for si, (unit, _) in enumerate(plan_segments(layer_kinds(cfg))):
+        for p_l in _unstack(params["segments"][f"seg{si}"]):
+            for ui, kind in enumerate(unit):
+                x = apply_block_train(cfg, kind, p_l[f"u{ui}"], x, positions)
+    return x
+
+
+def loss_fn(cfg, params, batch):
+    """Mean next-token cross-entropy over ``batch["mask"]`` (all ones if
+    absent)."""
+    _check_served(cfg)
+    x, positions = _input_sequence(cfg, params, batch)
+    x = _run_layers(cfg, params, x, positions)
+    x = apply_norm(cfg, params["final_norm"], x)
+    labels = batch["labels"]
+    mask = batch.get("mask")
+    mask = (torch.ones(labels.shape, dtype=torch.float32, device=x.device)
+            if mask is None else mask.float())
+    return _chunked_loss(cfg, params, x, labels, mask)
+
+
+# --------------------------------------------------------------------------
 # forward: prefill & decode
 # --------------------------------------------------------------------------
 
-def init_cache(cfg, batch: int, max_len: int, *, device="cpu"):
+def init_cache(cfg, batch: int, max_len: int, *, device=None):
+    """Zero decode caches on ``device``: the card unless the caller asks
+    for the CPU."""
     _check_served(cfg)
+    device = alloc_device(device)
     return {f"seg{si}": {f"u{ui}": init_layer_cache(cfg, kind, batch,
                                                     max_len, lead=(count,),
                                                     device=device)
@@ -265,15 +351,27 @@ def init_cache(cfg, batch: int, max_len: int, *, device="cpu"):
 
 def _prefill_block(cfg, kind, p, x, positions, max_len):
     """Block forward that also captures the decode cache."""
-    window = cfg.window if kind[0] == "l" else None
-    B, T = x.shape[:2]
-    dt = dtype_of(cfg.dtype)
+    fl = kind[0]
     h = apply_norm(cfg, p["norm1"], x)
-    q, k, v = attn._project_qkv(cfg, p["mixer"], h, positions)
+    if fl in ("g", "l"):
+        h, cache = _attention_prefill(cfg, fl, p["mixer"], h, positions,
+                                      max_len)
+    else:
+        h, cache = _PREFILL[fl](cfg, p["mixer"], h)
+    if cfg.post_norm:
+        h = apply_norm(cfg, p["norm1_post"], h)
+    return _ffn_half(cfg, p, x + h), cache
+
+
+def _attention_prefill(cfg, fl, p, h, positions, max_len):
+    window = cfg.window if fl == "l" else None
+    B, T = h.shape[:2]
+    dt = dtype_of(cfg.dtype)
+    q, k, v = attn._project_qkv(cfg, p, h, positions)
     o = attn._dispatch_attend(q, k, v, window, True,
                               cfg.resolved_head_dim ** -0.5,
                               cfg.attn_softcap)
-    h = o.reshape(B, T, -1) @ p["mixer"]["wo"].to(h.dtype)
+    out = o.reshape(B, T, -1) @ p["wo"].to(h.dtype)
     S = min(window, max_len) if window else max_len
     if window and T >= S:
         # ring buffer: position t lives in slot t % S
@@ -285,9 +383,7 @@ def _prefill_block(cfg, kind, p, x, positions, max_len):
             c = torch.zeros((B, S) + t.shape[2:], dtype=dt, device=t.device)
             c[:, :T] = t.to(dt)
             cache[name] = c
-    if cfg.post_norm:
-        h = apply_norm(cfg, p["norm1_post"], h)
-    return _ffn_half(cfg, p, x + h), cache
+    return out, cache
 
 
 def prefill(cfg, params, batch, max_len: int):

@@ -98,7 +98,7 @@ def _tree_bytes(d, step):
 def test_save_checkpoint_byte_identical(tmp_path, dtype, frac, layout):
     shards, parity = layout
     np_state, masks = _case(dtype, frac)
-    t_state = state_from_numpy(np_state)
+    t_state = state_from_numpy(np_state, "cpu")
     for tag, rep_r, rep_t in (("full", None, None),
                               ("scrutinized", _r_report(np_state, masks),
                                report_from_masks(masks, t_state))):
@@ -116,7 +116,7 @@ def test_encodings_cover_regions_and_bitmap(tmp_path):
     np_state = {"solid": np.arange(4000, dtype=np.float32),
                 "frag": np.arange(4000, dtype=np.float32)}
     masks = {"solid": np.arange(4000) < 1500, "frag": _mask(4000, 0.5, 1)}
-    t_state = state_from_numpy(np_state)
+    t_state = state_from_numpy(np_state, "cpu")
     TC.save_checkpoint(str(tmp_path), 1, t_state,
                        report=report_from_masks(masks, t_state))
     enc = {e["name"]: e["encoding"]
@@ -137,7 +137,7 @@ def test_manager_chain_byte_identical(tmp_path, monkeypatch, engine,
     monkeypatch.setattr(t_manager, "D2H_CHUNK_BYTES", 700)
     np_state, masks = _case(dtype, 0.3)
     rep_r = _r_report(np_state, masks)
-    t_state = state_from_numpy(np_state)
+    t_state = state_from_numpy(np_state, "cpu")
     rep_t = report_from_masks(masks, t_state)
     dr, dt = str(tmp_path / "r"), str(tmp_path / "t")
     level = dict(keep_n=5, max_chain=2, shards=2, parity=True)
@@ -153,7 +153,7 @@ def test_manager_chain_byte_identical(tmp_path, monkeypatch, engine,
         for step in (1, 2, 3, 4):
             cur = dict(np_state, w=w.reshape(40, 100))
             rm.save(step, _j(cur), block=True)
-            tm.save(step, state_from_numpy(cur), block=True)
+            tm.save(step, state_from_numpy(cur, "cpu"), block=True)
             assert tm.last_save_stats["engine"] == (
                 engine if save_mode == "device" else "host")
             assert _tree_bytes(dr, step) == _tree_bytes(dt, step), step
@@ -166,6 +166,52 @@ def test_manager_chain_byte_identical(tmp_path, monkeypatch, engine,
                 w[hot] += step
 
 
+@pytest.mark.parametrize("engine", ["host", "device"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_manager_uncritical_leaves_byte_identical(tmp_path, engine, dtype):
+    """Leaves with no critical element (a training state's Adam moments)
+    take the manager's fast path: no mask is scanned at save and none is
+    rebuilt at restore.  The step directories (a base and a delta) stay
+    byte-identical to the reference's, and each package restores them to
+    the fill."""
+    np_state, masks = _case(dtype, 0.3)
+    np_state["mu"] = _vals(3000, "float32", 11).reshape(30, 100)
+    np_state["nu"] = _vals(33, dtype, 12)
+    masks["mu"], masks["nu"] = np.zeros(3000, bool), np.zeros(33, bool)
+    rep_r = _r_report(np_state, masks)
+    t_state = state_from_numpy(np_state, "cpu")
+    rep_t = report_from_masks(masks, t_state)
+    dr, dt = str(tmp_path / "r"), str(tmp_path / "t")
+    level = dict(keep_n=3, max_chain=1)
+    with RC.CheckpointManager([RC.Level(dr, **level)],
+                              scrutiny_fn=lambda s: rep_r,
+                              save_mode="device") as rm, \
+            TC.CheckpointManager([TC.Level(dt, **level)],
+                                 scrutiny_fn=lambda s: rep_t,
+                                 pipeline_engine=engine,
+                                 device="cpu") as tm:
+        for step in (1, 2):
+            rm.save(step, _j(np_state), block=True)
+            tm.save(step, t_state, block=True)
+            assert _tree_bytes(dr, step) == _tree_bytes(dt, step), step
+    enc = {e["name"]: (e["encoding"], e["num_regions"])
+           for e in TC.read_manifest(dt, 1)["leaves"]}
+    assert enc["mu"] == enc["nu"] == ("regions", 0)
+    expect = {k: np.where(masks[k].reshape(v.shape), v, np.zeros((), v.dtype))
+              if k in masks else v for k, v in np_state.items()}
+    with TC.CheckpointManager([TC.Level(dt, keep_n=0)],
+                              device="cpu") as tm:
+        step, got = tm.restore({k: torch.ones_like(v)
+                                for k, v in t_state.items()})
+    with RC.CheckpointManager([RC.Level(dt, keep_n=0)]) as rm:
+        _, got_r = rm.restore({k: jnp.ones_like(jnp.asarray(v))
+                               for k, v in np_state.items()})
+    assert step == 2
+    for k, v in expect.items():
+        assert to_host(got[k]).tobytes() == np.asarray(v).tobytes(), k
+        assert np.asarray(got_r[k]).tobytes() == np.asarray(v).tobytes(), k
+
+
 # --------------------------------------------------------------------------
 # cross-restore, both ways
 # --------------------------------------------------------------------------
@@ -176,7 +222,7 @@ def test_cross_restore(tmp_path, writer, mode):
     np_state, masks = _case("bfloat16", 0.3)
     np_state["f"] = _vals(777, "float32", 3)
     masks["f"] = _mask(777, 0.03, 4)
-    t_state = state_from_numpy(np_state)
+    t_state = state_from_numpy(np_state, "cpu")
     d = str(tmp_path / "ckpt")
     level = dict(keep_n=3, max_chain=1)
     if writer == "reference":
@@ -215,7 +261,7 @@ def test_cross_restore(tmp_path, writer, mode):
 
 def test_device_restore_h2d_matches_reference(tmp_path):
     np_state, masks = _case("float32", 0.148, n=40 * 400)
-    t_state = state_from_numpy(np_state)
+    t_state = state_from_numpy(np_state, "cpu")
     d = str(tmp_path / "c")
     TC.save_checkpoint(d, 1, t_state,
                        report=report_from_masks(masks, t_state))
@@ -253,7 +299,7 @@ class _Gate:
 def test_mutation_after_async_save(tmp_path, monkeypatch, engine,
                                    scrutinized):
     np_state, masks = _case("float32", 0.5)
-    state = state_from_numpy(np_state)
+    state = state_from_numpy(np_state, "cpu")
     rep = report_from_masks(masks, state)
     gate = _Gate(monkeypatch)
     d = str(tmp_path / "c")
@@ -318,7 +364,7 @@ def test_whole_slice_matches_reference(tmp_path):
                                          for k, v in state.items()})
             outs[pkg] = (step, float(j_resume(got)), float(j_resume(state)))
         else:
-            state = state_from_numpy(np_state)
+            state = state_from_numpy(np_state, "cpu")
             with TC.CheckpointManager(
                     [TC.Level(d, keep_n=3, max_chain=2)],
                     scrutiny_fn=lambda s: scrutinize(
@@ -360,7 +406,7 @@ def test_bench_state_byte_counts(tmp_path):
                 "b": rng.randn(n // 8).astype(np.float32),
                 "step": np.asarray(7, np.int32)}
     masks = {"w": rng.rand(n) < 0.148, "b": rng.rand(n // 8) < 0.148}
-    state = state_from_numpy(np_state)
+    state = state_from_numpy(np_state, "cpu")
     rep = report_from_masks(masks, state)
     d = str(tmp_path / "bench")
     with TC.CheckpointManager([TC.Level(d, keep_n=1)],
@@ -382,7 +428,7 @@ def test_bench_state_byte_counts(tmp_path):
 
 def test_retention_keeps_chain_predecessors(tmp_path):
     np_state, masks = _case("float32", 0.3)
-    state = state_from_numpy(np_state)
+    state = state_from_numpy(np_state, "cpu")
     rep = report_from_masks(masks, state)
     d = str(tmp_path / "c")
     with TC.CheckpointManager([TC.Level(d, keep_n=1, max_chain=3)],
@@ -431,7 +477,7 @@ def test_single_device_sharding_matches_reference(dtype, frac):
     n = 40 * 70
     np_state, masks = _case(dtype, frac, n=n)
     leaf_np, m = np_state["w"], masks["w"]
-    leaf_t = state_from_numpy({"w": leaf_np})["w"]
+    leaf_t = state_from_numpy({"w": leaf_np}, "cpu")["w"]
     assert t_sh.leaf_segments(leaf_t) is None
     p_r, c_r, d_r = r_sh.pack_sharded_payload(jnp.asarray(leaf_np), m,
                                               use_kernel=False)

@@ -8,11 +8,20 @@ Inputs are made with numpy from a seed and handed to both packages.
 Tolerances are those of ``tests/test_kernels.py``: 2e-5 in f32 (sums in
 another order), 2e-2 in bf16 (one rounding of the output).
 
-The CUDA kernel itself is held against the plain version on the card by
-the ``gpu`` case of ``tests/test_torch_rules.py`` (the card's machine has
-no JAX, and this file imports it) and by ``chip_smoke.py``.
+The backward: the plain path's gradients (autograd through
+``flash_attention_ref``) equal ``jax.grad`` of the reference's
+``flash_attention_ref``, which is what the reference trains with (through
+XLA; K6 has no backward there), within 2e-5 of each gradient's largest
+magnitude in f32.  The autograd Function that carries the CUDA kernels on
+the card is driven with stand-ins of the kernels built from the plain
+version, under plain autograd and ``torch.func.vjp`` (the scrutiny).
+
+The CUDA kernels themselves are held against the plain version on the
+card by the ``gpu`` cases of ``tests/test_torch_rules.py`` (the card's
+machine has no JAX, and this file imports it) and by ``chip_smoke.py``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +33,8 @@ from repro.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.convert import state_from_numpy
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_ref as flash_ref_t)
 
 # Small shapes: one intra-op thread each leaves the cores to the other
 # test workers.
@@ -50,7 +61,7 @@ def _qkv(B, T, H, K, D, dtype, seed, Dv=None):
 
 
 def _port(np_qkv, **kw):
-    q, k, v = (state_from_numpy(a) for a in np_qkv)
+    q, k, v = (state_from_numpy(a, "cpu") for a in np_qkv)
     return ops.flash_attention(q, k, v, **kw).float().numpy()
 
 
@@ -103,4 +114,84 @@ def test_non_causal_ragged_t_follows_ref_not_padded_kernel():
 def test_plain_version_launches_nothing():
     K.reset_launches()
     _port(_qkv(1, 33, 4, 2, 16, "float32", seed=3), window=8, attn_cap=5.0)
-    assert K.LAUNCHES == {"flash_attention": 0}
+    assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0)
+
+
+# (B, T, H, K, D, Dv, window, causal, cap)
+GRAD_CASES = [
+    (2, 40, 4, 2, 16, 16, None, True, None),     # GQA 2:1
+    (1, 33, 4, 1, 32, 32, None, True, None),     # MQA (recurrentgemma)
+    (1, 50, 2, 2, 16, 16, 8, True, None),        # sliding window
+    (2, 30, 4, 2, 16, 16, None, True, 5.0),      # softcap
+    (1, 45, 6, 3, 24, 8, 16, True, 5.0),         # Dv != D, all combined
+    (1, 20, 2, 1, 16, 16, None, False, None),    # non-causal
+]
+
+
+@pytest.mark.parametrize("case", GRAD_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_plain_gradients_match_reference_grad(case):
+    B, T, H, K_, D, Dv, window, causal, cap = case
+    np_qkv = _qkv(B, T, H, K_, D, "float32", seed=T, Dv=Dv)
+    ct = np.random.RandomState(T + 1).randn(B, T, H, Dv).astype(np.float32)
+    kw = dict(window=window, causal=causal, scale=D ** -0.5, attn_cap=cap)
+    want = jax.jit(jax.grad(
+        lambda q, k, v: jnp.sum(flash_attention_ref(q, k, v, **kw) * ct),
+        argnums=(0, 1, 2)))(*(jnp.asarray(a) for a in np_qkv))
+    live = [state_from_numpy(a, "cpu").requires_grad_() for a in np_qkv]
+    got = torch.autograd.grad(ops.flash_attention(*live, **kw), live,
+                              torch.from_numpy(ct))
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w,
+                                   atol=2e-5 * np.abs(w).max(), rtol=0)
+
+
+def _stand_in_forward(q, k, v, *, scale, causal, window, attn_cap,
+                      with_lse=False):
+    K.LAUNCHES["flash_attention"] += 1
+    o = flash_ref_t(q, k, v, scale=scale, causal=causal, window=window,
+                    attn_cap=attn_cap)
+    return (o, torch.zeros(q.shape[0], q.shape[2], q.shape[1]), None) \
+        if with_lse else o
+
+
+def _stand_in_backward(q, k, v, o, lse, do, *, scale, causal, window,
+                       attn_cap):
+    K.LAUNCHES["flash_attention_backward"] += 1
+    with torch.enable_grad():
+        live = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = flash_ref_t(*live, scale=scale, causal=causal, window=window,
+                          attn_cap=attn_cap)
+        return torch.autograd.grad(out, live, do)
+
+
+def test_autograd_function_under_torch_func(monkeypatch):
+    """``FlashAttention`` with stand-in kernels: its gradient equals
+    autograd's through the plain version, under plain autograd and
+    ``torch.func.vjp``, and the backward goes through the backward
+    kernels' Function."""
+    monkeypatch.setattr(K, "flash_attention", _stand_in_forward)
+    monkeypatch.setattr(K, "flash_attention_backward", _stand_in_backward)
+    q, k, v = (state_from_numpy(a, "cpu").double()
+               for a in _qkv(2, 21, 4, 2, 8, "float32", seed=9, Dv=6))
+    kw = dict(scale=0.3, causal=True, window=6, attn_cap=4.0)
+
+    def loss(q, k, v):
+        o = ops.FlashAttention.apply(q, k, v, kw["scale"], kw["causal"],
+                                     kw["window"], kw["attn_cap"])[0]
+        return (o ** 2).sum()
+
+    want = torch.func.grad(
+        lambda q, k, v: (flash_ref_t(q, k, v, **kw) ** 2).sum(),
+        argnums=(0, 1, 2))(q, k, v)
+    K.reset_launches()
+    _, vjp = torch.func.vjp(loss, q, k, v)
+    got_vjp = vjp(torch.ones((), dtype=torch.float64))
+    live = [t.clone().requires_grad_() for t in (q, k, v)]
+    got_plain = torch.autograd.grad(loss(*live), live)
+    for got in (got_vjp, got_plain):
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=1e-9, rtol=1e-9)
+    assert K.LAUNCHES == {"flash_attention": 2,
+                          "flash_attention_backward": 2}

@@ -1,0 +1,181 @@
+"""K7, the RG-LRU scan: the port's entry against the reference's, on the CPU.
+
+On CPU tensors ``repro_torch.kernels.lru_scan.ops.lru_scan`` runs K7's
+plain version (a loop over T with an f32 carry); it must agree with the
+reference's ``lru_scan_ref`` and its Pallas kernel in interpret mode, and
+its gradients (autograd through the loop) with ``jax.vjp`` of
+``lru_scan_ref``.  ``rglru_train`` runs the recurrence through it where
+the reference runs ``lax.associative_scan``: the same recurrence in
+another association order.  The autograd Function that carries the CUDA
+kernels on the card is driven here with stand-ins of the kernels built
+from the plain version, under plain autograd, ``torch.func.vjp`` (the
+scrutiny) and a ``torch.func.grad`` nested inside it.
+
+Inputs are made with numpy from a seed and handed to both packages.
+Tolerances: f32 1e-5 (atol and rtol: one rounding a step, in another
+order, decaying through a < 1); bf16 2e-2 (the output's one rounding);
+the RG-LRU block 1e-5 of its largest output (f32, matmuls and the scan
+summed in another order).
+
+The CUDA kernels themselves are held against the plain version on the
+card by the ``gpu`` cases of ``tests/test_torch_rules.py`` (the card's
+machine has no JAX, and this file imports it) and by ``chip_smoke.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as r_get_config
+from repro.kernels.lru_scan.kernel import lru_scan_kernel
+from repro.kernels.lru_scan.ref import lru_scan_ref as r_lru_scan_ref
+from repro.models import recurrent as r_rec
+from repro_torch.configs import get_config
+from repro_torch.convert import state_from_numpy
+from repro_torch.kernels.lru_scan import kernel as K
+from repro_torch.kernels.lru_scan import ops
+from repro_torch.kernels.lru_scan.ref import lru_scan_ref
+from repro_torch.models import recurrent as rec
+
+# Small shapes: one intra-op thread each leaves the cores to the other
+# test workers.
+torch.set_num_threads(1)
+
+
+def _inputs(B, T, R, seed, dtype="float32", h0=True):
+    rng = np.random.RandomState(seed)
+    arrs = [rng.uniform(0.0, 1.0, (B, T, R)), rng.randn(B, T, R)]
+    if h0:
+        arrs.append(rng.randn(B, R))
+    return [np.asarray(jnp.asarray(a, getattr(jnp, dtype))) for a in arrs]
+
+
+def _port(arrs):
+    return [state_from_numpy(a, "cpu") for a in arrs]
+
+
+@pytest.mark.parametrize("B,T,R", [(1, 1, 5), (2, 7, 100), (2, 64, 33)])
+@pytest.mark.parametrize("h0", [True, False], ids=["h0", "zeros"])
+def test_plain_k7_matches_reference_ref(B, T, R, h0):
+    arrs = _inputs(B, T, R, seed=T * R, h0=h0)
+    want = r_lru_scan_ref(*(jnp.asarray(a) for a in arrs))
+    got = ops.lru_scan(*_port(arrs))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_plain_k7_matches_reference_kernel(dtype, tol):
+    """The Pallas kernel carries h in f32 whatever the input dtype, as the
+    port's plain version does; T and R on its tile grid (8 | T, 128 | R)."""
+    arrs = _inputs(2, 16, 256, seed=3, dtype=dtype)
+    want = lru_scan_kernel(*(jnp.asarray(a) for a in arrs), block_t=8,
+                           interpret=True)
+    got = ops.lru_scan(*_port(arrs))
+    assert got.dtype == (torch.float32 if dtype == "float32"
+                         else torch.bfloat16)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("h0", [True, False], ids=["h0", "zeros"])
+def test_plain_k7_gradients_match_reference_vjp(h0):
+    arrs = _inputs(2, 19, 40, seed=11, h0=h0)
+    ct = np.random.RandomState(12).randn(2, 19, 40).astype(np.float32)
+    _, vjp = jax.vjp(r_lru_scan_ref, *(jnp.asarray(a) for a in arrs))
+    want = vjp(jnp.asarray(ct))
+    ins = [t.requires_grad_() for t in _port(arrs)]
+    got = torch.autograd.grad(ops.lru_scan(*ins), ins, torch.from_numpy(ct))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=1e-5)
+
+
+def _stand_in_forward(a, b, h0=None):
+    K.LAUNCHES["lru_scan"] += 1
+    return lru_scan_ref(a, b, h0)
+
+
+def _stand_in_backward(a, h, h0, dh):
+    """The backward kernel's recurrence, written out in torch."""
+    K.LAUNCHES["lru_scan_backward"] += 1
+    T = a.shape[1]
+    g = torch.zeros(a[:, 0].shape, dtype=torch.float32)
+    a_next = torch.zeros_like(g)
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    for t in range(T - 1, -1, -1):
+        g = dh[:, t].float() + a_next * g
+        db[:, t] = g.to(a.dtype)
+        h_prev = h[:, t - 1].float() if t else (
+            torch.zeros_like(g) if h0 is None else h0.float())
+        da[:, t] = (g * h_prev).to(a.dtype)
+        a_next = a[:, t].float()
+    return da, db, None if h0 is None else (a_next * g).to(h0.dtype)
+
+
+@pytest.mark.parametrize("h0", [True, False], ids=["h0", "zeros"])
+def test_autograd_function_under_torch_func(monkeypatch, h0):
+    """``LruScan`` with stand-in kernels: its gradient equals autograd's
+    through the plain version under plain autograd, ``torch.func.vjp`` and
+    a ``torch.func.grad`` nested in a vjp, and every backward goes through
+    the backward kernel's Function."""
+    monkeypatch.setattr(K, "lru_scan", _stand_in_forward)
+    monkeypatch.setattr(K, "lru_scan_backward", _stand_in_backward)
+    a, b, *rest = (t.double() for t in _port(_inputs(2, 9, 6, seed=5,
+                                                     h0=h0)))
+    args = (a, b) + tuple(rest)
+
+    def loss(fn):
+        return lambda a, b, h0=None: (fn(a, b, h0) ** 2).sum()
+
+    argnums = tuple(range(len(args)))
+    want = torch.func.grad(loss(lru_scan_ref), argnums=argnums)(*args)
+    K.reset_launches()
+    kernel_loss = loss(ops.LruScan.apply)
+    got_func = torch.func.grad(kernel_loss, argnums=argnums)(*args)
+    _, vjp = torch.func.vjp(kernel_loss, *args)
+    got_vjp = vjp(torch.ones((), dtype=torch.float64))
+    live = [t.clone().requires_grad_() for t in args]
+    got_plain = torch.autograd.grad(kernel_loss(*live), live)
+
+    def nested(*x):   # a train step's gradient inside the scrutiny's vjp,
+        torch.func.grad(kernel_loss)(*x)   # not reaching the output
+        return kernel_loss(*x)
+
+    _, vjp2 = torch.func.vjp(nested, *args)
+    got_nested = vjp2(torch.ones((), dtype=torch.float64))
+    for got in (got_func, got_vjp, got_plain, got_nested):
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-6)
+    assert K.LAUNCHES == {"lru_scan": 5, "lru_scan_backward": 5}
+
+    def second(*x):   # a second derivative through the kernel raises
+        g = torch.func.grad(kernel_loss)(*x)
+        return (g * x[0]).sum()
+
+    with pytest.raises(RuntimeError, match="no second derivative"):
+        torch.func.grad(second)(*args)
+
+
+def test_entry_refuses_mixed_devices():
+    x = torch.ones(1, 2, 3)
+    with pytest.raises(RuntimeError, match="not a mix"):
+        ops.lru_scan(x, x.to("meta"))
+
+
+def test_rglru_train_matches_reference_associative_scan():
+    """The RG-LRU block (train path, f32 reduced recurrentgemma-2b) with
+    the reference's parameters: the port scans in order, the reference
+    with ``lax.associative_scan``."""
+    rcfg = r_get_config("recurrentgemma-2b").reduced()
+    cfg = get_config("recurrentgemma-2b").reduced()
+    rp = r_rec.init_rglru(rcfg, jax.random.PRNGKey(0))
+    tp = {k: torch.from_numpy(np.array(v)) for k, v in rp.items()}
+    x = np.random.RandomState(1).randn(2, 37, cfg.d_model).astype(np.float32)
+    want = np.asarray(r_rec.rglru_train(rcfg, rp, jnp.asarray(x)))
+    got = rec.rglru_train(cfg, tp, torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max(),
+                               rtol=0)

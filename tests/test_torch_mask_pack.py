@@ -47,7 +47,7 @@ def _pair(n, dtype, seed):
         j = jnp.asarray(rng.randint(-2 ** 30, 2 ** 30, n), jnp.int32)
     else:
         j = jnp.asarray(rng.randn(n) * 10, getattr(jnp, dtype))
-    return j, state_from_numpy({"x": np.asarray(j)})["x"]
+    return j, state_from_numpy({"x": np.asarray(j)}, "cpu")["x"]
 
 
 def _mask(n, frac, seed):
@@ -153,7 +153,7 @@ def test_uncritical_nonfinite_values(dtype, value):
     vals = rng.randn(n) * 10
     vals[np.flatnonzero(~m)[:5]] = value
     j = jnp.asarray(vals, getattr(jnp, dtype))
-    t = state_from_numpy({"x": np.asarray(j)})["x"]
+    t = state_from_numpy({"x": np.asarray(j)}, "cpu")["x"]
     p_r, c_r = R.pack(j, jnp.asarray(m), use_kernel=False)
     p_t, c_t = T.pack(t, torch.from_numpy(m))
     assert _b(p_t) == _b(p_r) and _b(c_t) == _b(c_r)
@@ -165,7 +165,7 @@ def test_uncritical_nonfinite_values(dtype, value):
     crit[:3] = value
     o_r = R.mask_scatter(jnp.asarray(crit), jnp.asarray(m), n=n, fill=0,
                          use_kernel=False)
-    o_t = T.mask_scatter(state_from_numpy({"p": crit})["p"],
+    o_t = T.mask_scatter(state_from_numpy({"p": crit}, "cpu")["p"],
                          torch.from_numpy(m), n=n, fill=0)
     assert _b(o_t) == _b(o_r)
 

@@ -28,6 +28,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.lru_scan import kernel as LK
+from repro_torch.kernels.lru_scan import ops as lru_ops
+from repro_torch.kernels.lru_scan.ref import lru_scan_ref
 from repro_torch.kernels.mask_pack import kernel as K
 from repro_torch.kernels.mask_pack import ops, ref
 from repro_torch.models import init_params
@@ -131,6 +134,14 @@ def _fa_call():
                               causal=True, window=None, attn_cap=None)
 
 
+def _fa_backward_call():
+    q = torch.ones(1, 4, 2, 8)
+    kv = q[:, :, :1].contiguous()
+    return FK.flash_attention_backward(q, kv, kv, q, torch.zeros(1, 2, 4), q,
+                                       scale=1.0, causal=True, window=None,
+                                       attn_cap=None)
+
+
 @pytest.mark.parametrize("mod,call", [
     (K, lambda: K.bitpack(torch.ones(8), 0.0)),
     (K, lambda: K.pack_into(torch.ones(8), torch.ones(8, dtype=torch.bool),
@@ -140,7 +151,12 @@ def _fa_call():
     (K, lambda: K.mask_scatter(torch.ones(8), torch.ones(8, dtype=torch.bool),
                                torch.tensor(0.0))),
     (FK, _fa_call),
-], ids=["bitpack", "pack", "delta_flags", "mask_scatter", "flash_attention"])
+    (FK, _fa_backward_call),
+    (LK, lambda: LK.lru_scan(torch.ones(1, 3, 2), torch.ones(1, 3, 2))),
+    (LK, lambda: LK.lru_scan_backward(torch.ones(1, 3, 2), torch.ones(1, 3, 2),
+                                      None, torch.ones(1, 3, 2))),
+], ids=["bitpack", "pack", "delta_flags", "mask_scatter", "flash_attention",
+        "flash_attention_backward", "lru_scan", "lru_scan_backward"])
 def test_kernel_wrappers_refuse_host_tensors(mod, call):
     before = dict(mod.LAUNCHES)
     with pytest.raises(RuntimeError, match="needs a CUDA tensor"):
@@ -170,7 +186,7 @@ def test_missing_compiler_is_an_error(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
-    for mod in (K, FK):
+    for mod in (K, FK, LK):
         monkeypatch.setattr(mod.LIBRARY, "_lib", None)
         with pytest.raises(RuntimeError, match="nvcc not found"):
             mod.load_library()
@@ -179,6 +195,7 @@ def test_missing_compiler_is_an_error(monkeypatch, tmp_path):
 def test_plain_versions_count_no_launches():
     K.reset_launches()
     FK.reset_launches()
+    LK.reset_launches()
     x = torch.randn(3000)
     m = torch.rand(3000) < 0.3
     ops.threshold_bitpack(x.abs())
@@ -186,16 +203,22 @@ def test_plain_versions_count_no_launches():
     ops.mask_scatter(x[m], m, n=3000)
     ops.delta_encode(x, x)
     q = x[:2400].reshape(1, 20, 4, 30)
-    fa_ops.flash_attention(q, q[:, :, :2], q[:, :, :2], window=5,
-                           attn_cap=30.0)
+    live = q.clone().requires_grad_()
+    fa_ops.flash_attention(live, q[:, :, :2], q[:, :, :2], window=5,
+                           attn_cap=30.0).sum().backward()
+    a = x[:2400].reshape(2, 30, 40).sigmoid().requires_grad_()
+    lru_ops.lru_scan(a, x[:2400].reshape(2, 30, 40)).sum().backward()
     assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0)
-    assert FK.LAUNCHES == {"flash_attention": 0}
+    assert FK.LAUNCHES == dict.fromkeys(FK.LAUNCHES, 0)
+    assert LK.LAUNCHES == dict.fromkeys(LK.LAUNCHES, 0)
 
 
 def test_flash_attention_raises_on_other_devices():
     q = torch.ones(1, 4, 2, 8, device="meta")
     with pytest.raises(RuntimeError, match="not a mix"):
         fa_ops.flash_attention(q, q, q)
+    with pytest.raises(RuntimeError, match="not a mix"):
+        lru_ops.lru_scan(q[0], q[0])
 
 
 def test_package_exports():
@@ -274,7 +297,69 @@ def test_flash_attention_matches_plain_version_on_the_card(card, dtype, case):
     kw = dict(window=window, causal=causal, scale=D ** -0.5, attn_cap=cap)
     FK.reset_launches()
     got = fa_ops.flash_attention(q, k, v, **kw)
-    assert FK.LAUNCHES == {"flash_attention": 1}
+    assert FK.LAUNCHES == {"flash_attention": 1,
+                           "flash_attention_backward": 0}
     want = flash_attention_ref(q, k, v, **kw)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+# (B, T, R, h0) for K7: T = 1, odd T and R, the training slice's width
+LRU_CARD_CASES = [(1, 1, 5, True), (2, 7, 100, False), (2, 300, 2560, True),
+                  (3, 64, 33, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", LRU_CARD_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_lru_scan_matches_plain_version_on_the_card(card, dtype, case):
+    """K7 forward and backward against the plain version and autograd's
+    gradient through it: f32 1e-5, bf16 2e-2 (atol and rtol)."""
+    B, T, R, with_h0 = case
+    g = torch.Generator(device=card).manual_seed(2)
+    a = torch.rand((B, T, R), generator=g, device=card).to(dtype)
+    b = torch.randn((B, T, R), generator=g, device=card).to(dtype)
+    h0 = (torch.randn((B, R), generator=g, device=card).to(dtype)
+          if with_h0 else None)
+    dh = torch.randn((B, T, R), generator=g, device=card).to(dtype)
+    ins = [a, b] + ([h0] if with_h0 else [])
+    live = [t.clone().requires_grad_() for t in ins]
+    LK.reset_launches()
+    got = lru_ops.lru_scan(*live)
+    got_grads = torch.autograd.grad(got, live, dh)
+    assert LK.LAUNCHES == {"lru_scan": 1, "lru_scan_backward": 1}
+    ref_live = [t.clone().requires_grad_() for t in ins]
+    want = lru_scan_ref(*ref_live)
+    want_grads = torch.autograd.grad(want, ref_live, dh)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for x, y in zip((got,) + got_grads, (want,) + want_grads):
+        torch.testing.assert_close(x.float(), y.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FA_CARD_CASES + [
+    (1, 300, 300, 10, 1, 256, 256, 2048, True, None)],
+    ids=lambda c: "-".join(map(str, c)))
+def test_flash_attention_backward_matches_plain_version_on_the_card(
+        card, dtype, case):
+    """K6's backward (dq, dk, dv) against autograd through
+    flash_attention_ref: f32 2e-5, bf16 2e-2 (atol and rtol)."""
+    B, Tq, Tk, H, Kh, D, Dv, window, causal, cap = case
+    g = torch.Generator(device=card).manual_seed(3)
+    q, k, v = (torch.randn(s, generator=g, device=card).to(dtype) for s in
+               ((B, Tq, H, D), (B, Tk, Kh, D), (B, Tk, Kh, Dv)))
+    do = torch.randn((B, Tq, H, Dv), generator=g, device=card).to(dtype)
+    kw = dict(window=window, causal=causal, scale=D ** -0.5, attn_cap=cap)
+    live = [t.clone().requires_grad_() for t in (q, k, v)]
+    FK.reset_launches()
+    got = torch.autograd.grad(fa_ops.flash_attention(*live, **kw), live, do)
+    assert FK.LAUNCHES == {"flash_attention": 1,
+                           "flash_attention_backward": 1}
+    ref_live = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_ref(*ref_live, **kw),
+                               ref_live, do)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x.float(), y.float(), atol=tol, rtol=tol)

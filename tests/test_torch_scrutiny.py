@@ -45,7 +45,7 @@ def _agree(j_fn, t_fn, np_state, probes=3):
     Returns the port's device report."""
     r = r_scrutinize(j_fn, jax.tree_util.tree_map(jnp.asarray, np_state),
                      config=RConfig(probes=probes))
-    t_state = state_from_numpy(np_state)
+    t_state = state_from_numpy(np_state, "cpu")
     d = scrutinize(t_fn, t_state, config=ScrutinyConfig(probes=probes),
                    device="cpu")
     h = scrutinize(t_fn, t_state,
@@ -245,7 +245,7 @@ def test_dtype_density_matrix(dtype, frac):
     np_state = {"x": np.asarray(x), "y": rng.randn(17).astype(np.float32),
                 "step": np.asarray(3, np.int32)}
     wj = jnp.asarray(sel, x.dtype if dtype != "int32" else jnp.float32)
-    wt = state_from_numpy({"w": np.asarray(wj)})["w"]
+    wt = state_from_numpy({"w": np.asarray(wj)}, "cpu")["w"]
 
     def j_fn(s):
         if s["x"].dtype == jnp.int32:

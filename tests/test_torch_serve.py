@@ -78,7 +78,7 @@ def models():
             np_params = _map(np.asarray, rparams)
             cfg = get_config(name).reduced()
             made[name] = (rcfg, rparams, cfg,
-                          params_from_numpy(cfg, np_params))
+                          params_from_numpy(cfg, np_params, "cpu"))
         return made[name]
 
     return get
@@ -119,8 +119,7 @@ def test_config_registry_is_the_references():
             assert dataclasses.asdict(t) == dataclasses.asdict(r), name
 
 
-@pytest.mark.parametrize("name", ["xlstm-125m", "recurrentgemma-2b",
-                                  "deepseek-v3-671b", "olmoe-1b-7b",
+@pytest.mark.parametrize("name", ["deepseek-v3-671b", "olmoe-1b-7b",
                                   "whisper-tiny", "qwen2-vl-7b"])
 def test_unported_families_raise(name):
     cfg = get_config(name).reduced()
@@ -135,7 +134,7 @@ def test_foreign_parameter_trees_are_refused(models):
     np_params = _map(np.asarray, rparams)
     del np_params["lm_head"]
     with pytest.raises(ValueError, match="init_params tree"):
-        params_from_numpy(cfg, np_params)
+        params_from_numpy(cfg, np_params, "cpu")
     with pytest.raises(ValueError, match="init_params"):
         Engine(get_config("phi4-mini-3.8b").reduced(), tparams, 16,
                device="cpu")
@@ -146,7 +145,8 @@ def _shapes(tree):
             for n, l in _named(tree).items()}
 
 
-@pytest.mark.parametrize("name", ARCHS + ["gemma-7b"])
+@pytest.mark.parametrize("name", ARCHS + ["gemma-7b", "xlstm-125m",
+                                          "recurrentgemma-2b"])
 @pytest.mark.parametrize("reduced", [True, False], ids=["reduced", "full"])
 def test_param_and_cache_trees_match_reference(name, reduced):
     """Leaf names, shapes and dtypes of the parameters and the decode
@@ -298,7 +298,7 @@ def test_kv_table_and_masks_match_reference(models, name, prompt):
     r_rep = r_scrutinize(reng.resume_fn(2), r_state,
                          config=RConfig(probes=2))
     eng = Engine(cfg, tparams, MAX_LEN, device="cpu")
-    state = state_from_numpy(_map(np.asarray, r_state))
+    state = state_from_numpy(_map(np.asarray, r_state), "cpu")
     rep = scrutinize(eng.resume_fn(2), state,
                      config=ScrutinyConfig(probes=2), device="cpu")
     assert sorted(rep.leaves) == sorted(r_rep.leaves)
@@ -342,7 +342,7 @@ def test_engine_checkpoints_byte_identical_and_cross_restore(models,
                          dict(s1, pos=s1["pos"] + 2),
                          config=RConfig(probes=2))
     masks = {n: np.asarray(l.mask) for n, l in r_rep.leaves.items()}
-    t1, t2 = state_from_numpy(np1), state_from_numpy(np2)
+    t1, t2 = state_from_numpy(np1, "cpu"), state_from_numpy(np2, "cpu")
     t_rep = report_from_masks(masks, t1)
     dr, dt = str(tmp_path / "r"), str(tmp_path / "t")
     level = dict(keep_n=3, max_chain=1)
@@ -363,7 +363,7 @@ def test_engine_checkpoints_byte_identical_and_cross_restore(models,
     like = _map(np.zeros_like, np2)
     with TC.CheckpointManager([TC.Level(dr, keep_n=0)],
                               device="cpu") as tm:
-        step, got = tm.restore(state_from_numpy(like))
+        step, got = tm.restore(state_from_numpy(like, "cpu"))
     assert step == 2
     for n, v in _named(got).items():
         assert to_host(v).tobytes() == expect[n].tobytes(), n
