@@ -221,6 +221,22 @@ def fa_err(got: torch.Tensor, want: torch.Tensor, tol: float,
     return float(d.max())
 
 
+def scaled_err(got: torch.Tensor, want: torch.Tensor, tol: float,
+               what: str) -> tuple:
+    """max |Δ| against ``tol`` times the largest |want| (as the port's
+    gradient tests hold gradients): raises where it is more.  The
+    gradients of a mean loss lie far below 1, where :func:`fa_err`'s
+    absolute term alone would pass a kernel that returned zeros.
+    → (max |Δ|, max |Δ| / max |want|)."""
+    g, w = got.float(), want.float()
+    top = float(w.abs().max()) if w.numel() else 0.0
+    worst = float((g - w).abs().max()) if w.numel() else 0.0
+    check(bool(torch.isfinite(g).all()) and worst <= tol * top,
+          f"{what} differs from its plain version by {worst}, more than "
+          f"{tol} x its largest |value| {top}")
+    return worst, (worst / top if top else worst)
+
+
 def lru_tol(dtype: torch.dtype) -> float:
     """K7: 1e-5 in f32 (one rounding a step, in another order), 2e-2 in
     bf16 (the output's one rounding), as atol and rtol."""
@@ -244,10 +260,12 @@ def fa_plain_grads(q, k, v, do, **kw):
         return o.detach(), torch.autograd.grad(o, live, do)
 
 
-# K7 cases: T, R, h0 and dtype, B = 2
-LRU_CASES = [(t, r, h0, dt) for t in (1, 7, 256, 1000) for r in (100, 2560)
-             for h0 in (True, False) for dt in (torch.float32,
-                                                torch.bfloat16)]
+# K7 cases: T, R, h0 and dtype, B = 2 (T = 1024, R = 2560: the training
+# path's shape)
+LRU_CASES = [(t, r, h0, dt) for t in (1, 7, 256, 1000, 1024)
+             for r in (100, 2560)
+             for h0 in (True, False)
+             for dt in (torch.float32, torch.bfloat16)]
 
 
 def phase_lru_scan() -> int:
@@ -593,7 +611,9 @@ class KernelOrderAttention(torch.autograd.Function):
     def forward(q, k, v, scale, causal, window, attn_cap):
         o32, lse = plain_online(q, k, v, window=window, causal=causal,
                                 scale=scale, attn_cap=attn_cap, stats=True)
-        return o32.to(q.dtype), lse, o32
+        # a copy even in f32, or marking o32 non-differentiable would mark
+        # the output too
+        return o32.to(q.dtype, copy=True), lse, o32
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -890,20 +910,25 @@ SMOKE_ARCHS = ("xlstm-125m", TRAIN_ARCH)
 
 class KernelCheck:
     """While active, every K7 and K6 launch (forward and backward) is held
-    against its plain version on the same inputs; the kernels' outputs go
-    on, so the run is the kernels' run.  The first call of each kind keeps
-    its inputs for phase 5."""
+    against its plain version on the same inputs with :func:`scaled_err`;
+    the kernels' outputs go on, so the run is the kernels' run.  The first
+    call of each kind keeps its inputs for phase 5."""
 
     def __init__(self):
         self.err = {"lru_scan": 0.0, "lru_scan_backward": 0.0,
                     "flash_attention": 0.0, "flash_attention_backward": 0.0}
+        self.rel = dict(self.err)
         self.calls = dict.fromkeys(self.err, 0)
         self.inputs = {}
         self._b = {}
         self._real = {}
 
-    def _note(self, name, err, inputs):
-        self.err[name] = max(self.err[name], err)
+    def _note(self, name, pairs, tol, inputs):
+        for got, want in pairs:
+            if want is not None:
+                err, rel = scaled_err(got, want, tol, f"{name} in training")
+                self.err[name] = max(self.err[name], err)
+                self.rel[name] = max(self.rel[name], rel)
         self.calls[name] += 1
         if name not in self.inputs and inputs is not None:
             # detached: the step's autograd graph must not outlive it
@@ -914,19 +939,15 @@ class KernelCheck:
     def lru_scan(self, a, b, h0=None):
         h = self._real["lru_scan"](a, b, h0)
         self._b[h.data_ptr()] = b
-        self._note("lru_scan", fa_err(h, lru_scan_ref(a, b, h0),
-                                      lru_tol(a.dtype), "K7 in training"),
-                   (a, b, h0))
+        self._note("lru_scan", [(h, lru_scan_ref(a, b, h0))],
+                   lru_tol(a.dtype), (a, b, h0))
         return h
 
     def lru_scan_backward(self, a, h, h0, dh):
         got = self._real["lru_scan_backward"](a, h, h0, dh)
         b = self._b.pop(h.data_ptr())
         _, want = lru_plain_grads(a, b, h0, dh)
-        self._note("lru_scan_backward",
-                   max(fa_err(g, w, lru_tol(a.dtype),
-                              "K7 backward in training")
-                       for g, w in zip(got, want) if w is not None),
+        self._note("lru_scan_backward", zip(got, want), lru_tol(a.dtype),
                    (a, b, h, h0, dh))
         return got
 
@@ -934,19 +955,16 @@ class KernelCheck:
         out = self._real["flash_attention"](q, k, v, with_lse=with_lse, **kw)
         o = out[0] if with_lse else out
         self._note("flash_attention",
-                   fa_err(o, flash_attention_ref(q, k, v, **kw),
-                          fa_tol(q.dtype), "K6 in training"), None)
+                   [(o, flash_attention_ref(q, k, v, **kw))],
+                   fa_tol(q.dtype), None)
         return out
 
     def flash_attention_backward(self, q, k, v, o, lse, do, **kw):
         got = self._real["flash_attention_backward"](q, k, v, o, lse, do,
                                                      **kw)
         _, want = fa_plain_grads(q, k, v, do, **kw)
-        self._note("flash_attention_backward",
-                   max(fa_err(g, w, fa_tol(q.dtype),
-                              "K6 backward in training")
-                       for g, w in zip(got, want)),
-                   (q, k, v, o, lse, do, kw))
+        self._note("flash_attention_backward", zip(got, want),
+                   fa_tol(q.dtype), (q, k, v, o, lse, do, kw))
         return got
 
     _WRAPPED = ((LK, "lru_scan"), (LK, "lru_scan_backward"),
@@ -963,11 +981,28 @@ class KernelCheck:
             setattr(mod, name, self._real[name])
 
 
+def _zeroed(fn, index):
+    """``fn`` with output ``index`` replaced by zeros: a planted fault of a
+    backward kernel, to show that the gradient bound sees it."""
+    def faulty(*args, **kw):
+        out = list(fn(*args, **kw))
+        out[index] = torch.zeros_like(out[index])
+        return tuple(out)
+    return faulty
+
+
+# planted faults: (what, module, wrapper, output zeroed)
+PLANTED = (("K6 backward with dV zeroed", FK, "flash_attention_backward", 2),
+           ("K7 backward with da zeroed", LK, "lru_scan_backward", 0))
+
+
 def _grad_distances(cfg, params, batch):
-    """Relative L2 distance of the whole gradient from the plain path's
-    (flash_attention_ref, lru_scan_ref): the kernels', and the control's,
-    the plain path in the kernels' summation order
-    (``KernelOrderAttention``; the plain scan is already in K7's order)."""
+    """Relative L2 distances of the gradient from the plain path's
+    (flash_attention_ref, lru_scan_ref), of the whole tree and of its
+    farthest leaf: for the kernels; for the control, the plain path in the
+    kernels' summation order (``KernelOrderAttention``; the plain scan is
+    already in K7's order); and for the kernels with each of ``PLANTED``.
+    → {run: (whole, farthest leaf, its name)}, losses."""
     from repro_torch.models import attention as attn_mod
     from repro_torch.models import recurrent as rec_mod
     from repro_torch.train.step import loss_and_grads
@@ -983,21 +1018,37 @@ def _grad_distances(cfg, params, batch):
 
     def dist(g, ref):
         num = den = 0.0
-        for x, y in zip(_tree.leaves(g), _tree.leaves(ref)):
-            num += float(((x.double() - y.double()) ** 2).sum())
-            den += float((y.double() ** 2).sum())
-        return (num / den) ** 0.5
+        far = (0.0, "")
+        for (name, x), y in zip(_tree.flatten_with_names(g)[0],
+                                _tree.leaves(ref)):
+            n_ = float(((x.double() - y.double()) ** 2).sum())
+            d_ = float((y.double() ** 2).sum())
+            num, den = num + n_, den + d_
+            far = max(far, ((n_ / d_) ** 0.5 if d_ else
+                            (0.0 if n_ == 0 else float("inf")), name))
+        return ((num / den) ** 0.5,) + far
 
-    loss_p, g_plain = grads(flash_attention_ref, lru_scan_ref)
-    loss_k, g = grads(*real)
-    d_kernel = dist(g, g_plain)
-    del g
-    loss_c, g = grads(kernel_order_attention, lru_scan_ref)
-    d_control = dist(g, g_plain)
-    del g, g_plain
+    out, losses = {}, {}
+    losses["plain"], g_plain = grads(flash_attention_ref, lru_scan_ref)
+    runs = [("kernels", None), ("control", None)] + [
+        (what, (mod, name, index)) for what, mod, name, index in PLANTED]
+    for what, fault in runs:
+        if fault is not None:
+            mod, name, index = fault
+            kernel = getattr(mod, name)
+            setattr(mod, name, _zeroed(kernel, index))
+        try:
+            losses[what], g = grads(
+                *((kernel_order_attention, lru_scan_ref)
+                  if what == "control" else real))
+        finally:
+            if fault is not None:
+                setattr(mod, name, kernel)
+        out[what] = dist(g, g_plain)
+        del g
+    del g_plain
     torch.cuda.empty_cache()
-    return d_kernel, d_control, (float(loss_k), float(loss_p),
-                                 float(loss_c))
+    return out, {k: float(v) for k, v in losses.items()}
 
 
 def _state_bytes(tree) -> int:
@@ -1057,11 +1108,16 @@ def phase_training(root: str):
     # the whole gradient against the plain path and a control (before the
     # path's counts start: these launches compare, they are not the path)
     batch1, data1 = dp.next_batch(cfg, state["data"])
-    d_kernel, d_control, grad_losses = _grad_distances(cfg, state["params"],
-                                                       batch1)
-    check(d_kernel <= CONTROL_FACTOR * d_control,
-          f"gradient: relative L2 distance from the plain path {d_kernel} > "
-          f"{CONTROL_FACTOR} x the control's {d_control}")
+    dists, grad_losses = _grad_distances(cfg, state["params"], batch1)
+    bound = tuple(CONTROL_FACTOR * x for x in dists["control"][:2])
+    check(all(x <= b for x, b in zip(dists["kernels"][:2], bound)),
+          f"gradient: relative L2 distances from the plain path (whole, "
+          f"farthest leaf) {dists['kernels']} > {CONTROL_FACTOR} x the "
+          f"control's {dists['control']}")
+    for what, *_ in PLANTED:
+        check(any(x > b for x, b in zip(dists[what][:2], bound)),
+              f"gradient: the bound {bound} passes a planted fault, {what}: "
+              f"{dists[what]}")
     del batch1, data1
 
     K.reset_launches()
@@ -1182,14 +1238,16 @@ def phase_training(root: str):
     print(f"training: train_step_ms(median of steps 2-{TRAIN_STEPS})="
           f"{float(np.median(step_ms)):.3f} losses "
           f"{json.dumps([straight[s] for s in sorted(straight)])}")
-    print(f"training: one checked step: K7 and K6 within tolerance of the "
-          f"plain version on every launch {json.dumps(kc.calls)}, max |err| "
-          f"{json.dumps(kc.err)}")
-    print(f"training: gradient relative L2 distance from the plain path: "
-          f"kernels {d_kernel:.6e}, control (KernelOrderAttention) "
-          f"{d_control:.6e}"
-          f" (bound {CONTROL_FACTOR} x the control's); losses (kernels, "
-          f"plain, control) {json.dumps(grad_losses)}")
+    print(f"training: one checked step: every K7 and K6 launch within "
+          f"its tolerance times the largest |value| of its plain version "
+          f"{json.dumps(kc.calls)}; max |err| "
+          f"{json.dumps(kc.err)}; max |err| / max |value| "
+          f"{json.dumps(kc.rel)}")
+    print(f"training: gradient relative L2 distance from the plain path "
+          f"(whole tree, farthest leaf, its name), bound {CONTROL_FACTOR} x "
+          f"the control's (KernelOrderAttention) on either: "
+          f"{json.dumps(dists)}; each planted fault breaks the bound; "
+          f"losses {json.dumps(grad_losses)}")
     print(f"training: scrutiny of the state after step {SAVE_STEP}: "
           f"scrutiny_s={scrutiny_s:.4f}; parameters {crit['params']} "
           f"elements all critical, moments {crit['moments']} elements 0 "
@@ -1212,7 +1270,7 @@ def phase_training(root: str):
           f"{time.perf_counter() - t_phase:.1f} s")
     print(f"training: launches {json.dumps(launches)}; per train step "
           f"{json.dumps(per_step)}; mask kernels {json.dumps(mask_launches)}"
-          f" (the saved leaves are all or none critical: no K2 pack)")
+          f" (the saved leaves are all or none critical)")
     return launches, per_step, kc.inputs
 
 
@@ -1386,8 +1444,12 @@ def _sdpa_backward_call(q, k, v, do):
 
 def phase_timing_training(launches, per_step, inputs) -> list:
     """K7 forward and backward and K6's backward, timed on the inputs of
-    phase 7's first launches."""
+    phase 7's first launches.  The backward kernels take a unit-RMS
+    cotangent there beside those inputs, in place of the loss's, whose
+    values lie far below 1, and are held with :func:`scaled_err`."""
     rows = []
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(80)
     # the backward rows name the TPU kernel whose function they
     # differentiate: the reference has no backward kernel for either
     HOST = "src/repro/kernels/lru_scan/kernel.py:49"
@@ -1413,12 +1475,13 @@ def phase_timing_training(launches, per_step, inputs) -> list:
         3 * n * a.element_size() / HBM_BYTES_PER_S * 1e3)
     # K7 backward: reads a, h, dh, writes da, db
     a, b, h, h0, dh = inputs["lru_scan_backward"]
+    dh = torch.randn(dh.shape, generator=gen, device=DEV).to(dh.dtype)
     live = [t.detach().clone().requires_grad_() for t in (a, b)]
     with torch.enable_grad():
         h_ref = lru_scan_ref(*live)
     got = LK.lru_scan_backward(a, h, h0, dh)
     want = torch.autograd.grad(h_ref, live, dh, retain_graph=True)
-    err = max(fa_err(g, w, lru_tol(a.dtype), "K7 backward timed")
+    err = max(scaled_err(g, w, lru_tol(a.dtype), "K7 backward timed")[0]
               for g, w in zip(got, want))
     row("lru_scan_backward", "src/repro_torch/csrc/lru_scan.cu", HOST,
         lambda: LK.lru_scan_backward(a, h, h0, dh),
@@ -1428,6 +1491,7 @@ def phase_timing_training(launches, per_step, inputs) -> list:
     del live, h_ref, got, want
     # K6 backward: the first attention layer's q, k, v, o, lse, do
     q, k, v, o, lse, do, kw = inputs["flash_attention_backward"]
+    do = torch.randn(do.shape, generator=gen, device=DEV).to(do.dtype)
     B, T, H, D = q.shape
     Kh, Dv = k.shape[2], v.shape[3]
     qi = torch.arange(T, device=DEV)[:, None]
@@ -1446,7 +1510,7 @@ def phase_timing_training(launches, per_step, inputs) -> list:
     with torch.enable_grad():
         o_ref = flash_attention_ref(*live, **kw)
     want = torch.autograd.grad(o_ref, live, do, retain_graph=True)
-    err = max(fa_err(g, w, fa_tol(q.dtype), "K6 backward timed")
+    err = max(scaled_err(g, w, fa_tol(q.dtype), "K6 backward timed")[0]
               for g, w in zip(got, want))
     check(kw["causal"] and (kw["window"] is None or kw["window"] >= T),
           "SDPA's causal mask must be the layer's mask")

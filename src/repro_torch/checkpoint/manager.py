@@ -82,8 +82,7 @@ from repro_torch._tensors import (check_on, from_host, host_dtype, itemsize,
                                   torch_dtype)
 from repro_torch.checkpoint.packing import (DeltaLeaf, delta_encode_host,
                                             leaf_mask, pack_leaf,
-                                            packed_leaf_stub,
-                                            uncritical_leaf_stub, unpack_leaf)
+                                            packed_leaf_stub, unpack_leaf)
 from repro_torch.checkpoint.pipeline import (D2H_CHUNK_BYTES, QueueSource,
                                              TransferStream, ViewSource,
                                              fetch_to_host, run_transfers)
@@ -232,8 +231,6 @@ class _SaveSnapshot:
             if kind == "dev_raw":
                 self._flats[name] = leaf.detach().reshape(-1).clone()
                 continue
-            if int(rep.critical) == 0:
-                continue            # empty payload: no mask, no K2 pass
             key = (leaf_dtype_name(leaf), str(leaf.device))
             g = self._groups.setdefault(
                 key, {"names": [], "flats": [], "masks": [], "totals": []})
@@ -309,9 +306,6 @@ class _SaveSnapshot:
             stub = packed_leaf_stub(name, shape, dtype, None, _nbytes(leaf))
             return StreamLeaf(stub, _nbytes(leaf),
                               self._raw_source(name, leaf, chunk))
-        if int(rep.critical) == 0:
-            return StreamLeaf(uncritical_leaf_stub(name, shape, dtype), 0,
-                              ViewSource([], chunk))
         # dev_payload: aux from the (cached) host mask/regions; the payload
         # itself streams — byte-identical to pack_leaf on the host array.
         mask = rep.mask
@@ -414,8 +408,6 @@ class _SaveSnapshot:
                     else self._flats[name])
         if self.engine == "host":
             return self._host_payload(name, leaf, rep)
-        if int(rep.critical) == 0:
-            return leaf.new_empty(0)
         key, (lo, hi) = self._group_of(name)
         return self._groups[key]["payload"][lo:hi]
 
@@ -989,13 +981,7 @@ class CheckpointManager:
                                      dev))
                 continue
             stored_n = int(np.prod(p.shape)) if p.shape else 1
-            if (mode in ("auto", "device") and p.encoding == "regions"
-                    and p.num_regions == 0 and stored_n == n):
-                # no critical element: nothing to move or expand
-                arr = torch.full(shape, fill, dtype=torch_dtype(p.dtype),
-                                 device=dev)
-                device_leaves += 1
-            elif (mode in ("auto", "device") and not p.region_tiers
+            if (mode in ("auto", "device") and not p.region_tiers
                     and p.encoding in ("regions", "bitmap")
                     and stored_n == n):
                 mask = leaf_mask(p)

@@ -276,18 +276,6 @@ def packed_leaf_stub(name: str, shape: Tuple[int, ...], dtype: str,
                       payload=b"", checksum=0)
 
 
-def uncritical_leaf_stub(name: str, shape: Tuple[int, ...],
-                         dtype: str) -> PackedLeaf:
-    """:func:`packed_leaf_stub` of a leaf with no critical element, made
-    without its mask: zero regions (0 aux bytes, which ``_choose_aux``
-    always prefers) and an empty payload.  A scrutinized training state
-    has billions of such elements (the Adam moments), whose mask scan
-    would cost seconds per billion."""
-    return PackedLeaf(name=name, shape=tuple(shape), dtype=dtype,
-                      encoding="regions", aux=b"", num_regions=0,
-                      payload=b"", checksum=0)
-
-
 # --------------------------------------------------------------------------
 # Differential (delta) leaves: byte-chunk patches against a base payload
 # --------------------------------------------------------------------------

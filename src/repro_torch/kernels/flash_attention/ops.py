@@ -2,9 +2,10 @@
 the CPU.
 
 ``flash_attention(q, k, v, *, window, causal, scale, attn_cap)`` serves
-the train/prefill contract (positions are arange).  CUDA tensors go
-through :class:`FlashAttention`, whose forward is K6's forward kernel and
-whose backward is K6's backward kernels; CPU tensors take
+the train/prefill contract (positions are arange).  CUDA tensors that
+autograd can reach go through :class:`FlashAttention`, whose forward is
+K6's forward kernel and whose backward is K6's backward kernels, and the
+others through the forward kernel alone; CPU tensors take
 ``flash_attention_ref`` and autograd's gradient through it.  There is no
 fallback between the two.  Unlike ``repro``'s entry
 (``kernels/flash_attention/ops.py:36-49``) there is no padding step and no
@@ -85,9 +86,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_ref(q, k, v, window=window, causal=causal,
                                    scale=scale, attn_cap=attn_cap)
     if kinds == {"cuda"}:
-        return FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), scale, causal, window,
-                                    attn_cap)[0]
+        return _on_card(q.contiguous(), k.contiguous(), v.contiguous(),
+                        scale, causal, window, attn_cap)
     raise RuntimeError(f"flash_attention: tensors on {sorted(kinds)}; it "
                        "takes CUDA tensors (kernel) or CPU tensors (plain "
                        "version), not a mix")
+
+
+def _on_card(q, k, v, scale, causal, window, attn_cap):
+    """K6 where autograd can reach the call (grad mode on and an input
+    that requires grad, as under ``torch.func.vjp``) goes through
+    :class:`FlashAttention`, whose forward also writes the row
+    log-sum-exp (and, for 16-bit inputs, the f32 output) that the backward
+    reads; otherwise the forward kernel runs alone, as in the serving
+    prefill under ``no_grad``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, scale, causal, window,
+                                    attn_cap)[0]
+    return K.flash_attention(q, k, v, scale=scale, causal=causal,
+                             window=window, attn_cap=attn_cap)

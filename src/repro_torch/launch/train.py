@@ -27,6 +27,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import tempfile
 import time
 
 import torch
@@ -84,7 +85,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
-    ap.add_argument("--ckpt-dir", default="/tmp/repro_ckpt")
+    # not the reference launcher's default: a port run with --resume must
+    # not pick up the step directories a reference run left there
+    ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(),
+                                                        "repro_torch_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--scrutinize", action="store_true",

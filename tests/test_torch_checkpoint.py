@@ -170,10 +170,9 @@ def test_manager_chain_byte_identical(tmp_path, monkeypatch, engine,
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_manager_uncritical_leaves_byte_identical(tmp_path, engine, dtype):
     """Leaves with no critical element (a training state's Adam moments)
-    take the manager's fast path: no mask is scanned at save and none is
-    rebuilt at restore.  The step directories (a base and a delta) stay
-    byte-identical to the reference's, and each package restores them to
-    the fill."""
+    are stored as zero regions and an empty payload.  The step directories
+    (a base and a delta) stay byte-identical to the reference's, and each
+    package restores them to the fill."""
     np_state, masks = _case(dtype, 0.3)
     np_state["mu"] = _vals(3000, "float32", 11).reshape(30, 100)
     np_state["nu"] = _vals(33, dtype, 12)

@@ -195,3 +195,34 @@ def test_autograd_function_under_torch_func(monkeypatch):
             torch.testing.assert_close(g, w, atol=1e-9, rtol=1e-9)
     assert K.LAUNCHES == {"flash_attention": 2,
                           "flash_attention_backward": 2}
+
+
+def test_card_route_writes_lse_only_for_autograd(monkeypatch):
+    """On the card, only a call that autograd can reach writes the row
+    log-sum-exp: one under ``no_grad`` or on inputs that need no gradient
+    (the serving prefill) runs the forward kernel alone; one under
+    ``torch.func.vjp`` or on inputs that require grad goes through
+    ``FlashAttention``.  Driven on CPU tensors with stand-in kernels."""
+    asked = []
+
+    def forward(*args, with_lse=False, **kw):
+        asked.append(with_lse)
+        return _stand_in_forward(*args, with_lse=with_lse, **kw)
+
+    monkeypatch.setattr(K, "flash_attention", forward)
+    monkeypatch.setattr(K, "flash_attention_backward", _stand_in_backward)
+    q, k, v = (state_from_numpy(a, "cpu")
+               for a in _qkv(1, 9, 2, 1, 8, "float32", seed=3))
+    args = (0.3, True, None, None)
+    want = flash_ref_t(q, k, v, scale=0.3)
+    with torch.no_grad():
+        live = [t.clone().requires_grad_() for t in (q, k, v)]
+        got = [ops._on_card(*live, *args),
+               torch.func.vjp(lambda q, k, v: ops._on_card(q, k, v, *args),
+                              q, k, v)[0]]
+    got.append(ops._on_card(q, k, v, *args))
+    got.append(ops._on_card(*live, *args))
+    assert asked == [False, True, False, True]
+    for o in got:
+        torch.testing.assert_close(o, want, atol=0, rtol=0)
+
