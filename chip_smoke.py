@@ -4,11 +4,14 @@
 
 Builds the CUDA kernels of ``src/repro_torch/csrc`` (one nvcc per source,
 all started together) and checks each against its plain PyTorch version on
-the card, then drives the port's three paths: the paper's pipeline
+the card, then drives the port's four paths: the paper's pipeline
 (scrutinize → device-packed save → delta chain → device restore) at a
 ≈2.5 GiB state; the serving path (phi4-mini-3.8b at full width and depth:
 prefill through flash attention, decode, KV scrutiny, base + delta
-snapshots, restore, exact continuation); and the training path
+snapshots, restore, exact continuation); the paper's NPB evaluation (the
+eight class-S programs: AD scrutiny in f64, the Table II counts, the
+§IV-C restart through the tiled pack and the unpack kernel, scrutinized
+saves and restores that verify, Table III); and the training path
 (recurrentgemma-2b at full width, depth cut to fit: train steps through
 the RG-LRU scan and flash attention forward and backward, AD scrutiny of
 the training state, scrutinized and full saves, restores and
@@ -49,7 +52,7 @@ from repro_torch.kernels.mask_pack import ops, ref  # noqa: E402
 
 DEV = "cuda"
 DTYPES = (torch.float16, torch.bfloat16, torch.float32, torch.float64,
-          torch.int32, torch.bool)
+          torch.complex128, torch.int32, torch.bool)
 DENSITIES = (0.0, 0.03, 0.5, 1.0)
 SIZES = (1, 511, 513, (1 << 20) + 7)
 
@@ -73,6 +76,8 @@ def values(n: int, dtype: torch.dtype, gen: torch.Generator) -> torch.Tensor:
     if dtype == torch.int32:
         return torch.randint(-2 ** 30, 2 ** 30, (n,), generator=gen,
                              device=DEV, dtype=torch.int32)
+    if dtype.is_complex:
+        return torch.randn(n, generator=gen, device=DEV, dtype=dtype)
     return torch.randn(n, generator=gen, device=DEV).to(dtype)
 
 
@@ -81,11 +86,14 @@ def selector(n: int, frac: float, gen: torch.Generator) -> torch.Tensor:
 
 
 def poison(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """±inf and NaN at a few uncritical positions of a float tensor."""
+    """±inf, NaN and -0.0 at the first uncritical and the first critical
+    positions of a float or complex tensor."""
     x = x.clone()
-    idx = torch.nonzero(~mask).reshape(-1)[:3]
-    for v, i in zip((float("inf"), float("-inf"), float("nan")), idx):
-        x[i] = v
+    for side in (~mask, mask):
+        idx = torch.nonzero(side).reshape(-1)[:4]
+        for v, i in zip((float("inf"), float("-inf"), float("nan"), -0.0),
+                        idx):
+            x[i] = v
     return x
 
 
@@ -136,13 +144,22 @@ def phase_kernels() -> int:
                     cases += 1
             for dt in DTYPES:
                 x = values(n, dt, gen)
-                xs = [x] + ([poison(x, sel)] if dt.is_floating_point else [])
+                inexact = dt.is_floating_point or dt.is_complex
+                xs = [x] + ([poison(x, sel)] if inexact else [])
                 for v in xs:
                     # K2 tiled and dense forms
                     p, c = ops.pack(v, sel)
                     p_r, c_r = ref.pack_blocks_ref(v, sel)
                     check(same_bytes(p, p_r) and same_bytes(c, c_r),
                           f"K2 tiled {dt} n={n} frac={frac}")
+                    # K5 back from the tiles, fill 0 and a non-zero fill;
+                    # the critical values come back as they went in
+                    for fill in (0, 1):
+                        o = ops.unpack(p, sel, n=n, fill=fill)
+                        check(same_bytes(o, ref.unpack_blocks_ref(p, sel,
+                                                                  fill))
+                              and same_bytes(o[sel], v[sel]),
+                              f"K5 {dt} n={n} frac={frac} fill={fill}")
                     total = int(c_r.sum())
                     pay, cg = ops.pack_group([v, v[: n // 2]],
                                              [sel, sel[: n // 2]],
@@ -157,6 +174,9 @@ def phase_kernels() -> int:
                         o_r = ref.mask_scatter_ref(pay[:total], sel, fill)
                         check(same_bytes(o, o_r),
                               f"K4 {dt} n={n} frac={frac} fill={fill}")
+                    cases += 1
+                    if dt.is_complex:
+                        continue     # delta saves write complex leaves whole
                     # K3 against a copy changed at the selected positions
                     b = v.clone()
                     b[sel] = values(int(sel.sum()), dt, gen) if dt != torch.bool \
@@ -174,7 +194,6 @@ def phase_kernels() -> int:
                         check(same_bytes(K.delta_flags(c8, b8, 2048),
                                          ref.delta_flags_ref(c8, b8, 2048)),
                               f"K3 unaligned {dt} n={n} frac={frac}")
-                    cases += 1
     torch.cuda.synchronize()
     print(f"kernels: {cases} cases bit-identical to the plain versions; "
           f"comparison launches {json.dumps(K.LAUNCHES)}")
@@ -359,6 +378,8 @@ def phase_flash_attention() -> int:
 # ----------------------------------------------------------------------------
 
 N_W, N_B, N_H = 1 << 29, 1 << 26, 1 << 27
+# the mask kernels of the checkpoint path (K5 runs on the NPB path only)
+CKPT_KERNELS = ("threshold_bitpack", "pack", "delta_flags", "mask_scatter")
 CRIT_W = 0.148               # the paper's BT(u) critical fraction
 MUTATED = 1 << 18            # 1 MiB of w, changed right after save()
 
@@ -489,7 +510,7 @@ def phase_main_path(root: str):
     r["w"][idx] += 1.0
     check(not torch.equal(resume(r), out), "critical corruption went unseen")
     mgr.close()
-    launches = dict(K.LAUNCHES)
+    launches = {k: K.LAUNCHES[k] for k in CKPT_KERNELS}
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main path was never launched: {launches}")
     disk = sum(os.path.getsize(os.path.join(root, "step_1", f))
@@ -827,7 +848,7 @@ def phase_serving(root: str):
     k0[0, 0, :8, 0, 0] += 1.0
     check(not torch.equal(_continue(eng, restored3, CONTINUE)[1], want),
           "critical corruption went unseen")
-    launches = {**K.LAUNCHES,
+    launches = {**{k: K.LAUNCHES[k] for k in CKPT_KERNELS},
                 "flash_attention": FK.LAUNCHES["flash_attention"]}
     # ---- end of the serving path ---------------------------------------
     check(all(v > 0 for v in launches.values()),
@@ -1275,6 +1296,108 @@ def phase_training(root: str):
 
 
 # ----------------------------------------------------------------------------
+# phase 8: the paper's NPB evaluation, the eight class-S programs
+# ----------------------------------------------------------------------------
+
+# Table II (tests/test_npb_paper.py:16-31, the rho_i/rsd swap corrected);
+# FT(y) is round-off off its lattice and is checked by structure instead
+NPB_TABLE2 = {
+    "bt": {"u": (1500, 10140)},
+    "sp": {"u": (1500, 10140)},
+    "cg": {"x": (2, 1402)},
+    "lu": {"u": (1628, 10140), "rho_i": (300, 2028), "qs": (300, 2028),
+           "rsd": (1500, 10140)},
+    "mg": {"u": (7176, 46480), "r": (10543, 46480)},
+    "ft": {"sums": (3, 6)},
+    "ep": {"q": (0, 10), "sx": (0, 1), "sy": (0, 1)},
+    "is": {"key_array": (0, 65536), "bucket_ptrs": (0, 512)},
+}
+# Table III, paper_storage_saved in %: the paper's numbers, within 0.5
+NPB_TABLE3 = {"bt": 14.8, "sp": 14.8, "mg": 19.1, "cg": 0.1, "lu": 15.7}
+REF_FT_Y_CRITICAL = 56176    # the reference's AD count on the CPU
+
+
+def phase_npb(root: str):
+    """Each program on the card: its checkpoint state, AD scrutiny (K1 on
+    the f64 accumulators of the float64 and complex128 leaves), Table II,
+    the §IV-C restart (K2 tiled + K5) and both corruptions, a scrutinized
+    save and a restore into fresh tensors (K2 dense, K4) that resumes and
+    verifies, and Table III.  → (launches over the phase, seconds)."""
+    from repro_torch import CheckpointManager, Level
+    from repro_torch.core.report import storage_table, summary_table
+    from repro_torch.npb import ALL_BENCHMARKS, get_benchmark
+    from repro_torch.npb.common import verify_restart
+    from repro_torch.npb.ft import lattice_mask
+
+    K.reset_launches()
+    t0 = time.perf_counter()
+    for name in ALL_BENCHMARKS:
+        bench = get_benchmark(name)          # the card, by default
+        check(bench.device.type == "cuda", f"npb {name} is not on the card")
+        state = bench.checkpoint_state()
+        rep, scrutiny_s = synced(bench.scrutinize)
+        for var, want in NPB_TABLE2[name].items():
+            got = (rep[var].uncritical, rep[var].total)
+            check(got == want, f"npb {name}({var}): {got}, Table II {want}")
+        if name == "ft":
+            m = rep["y"].device_mask()
+            lattice = torch.from_numpy(lattice_mask()).to(DEV)
+            pad = torch.arange(m.numel(), device=DEV) % 65 == 64
+            check(bool(m[lattice].all()) and not bool(m[pad].any()),
+                  "npb ft(y): the lattice must be critical, kx = 64 not")
+            print(f"npb ft(y): {rep['y'].critical} of {rep['y'].total} "
+                  f"critical (the reference on the CPU: "
+                  f"{REF_FT_Y_CRITICAL}); the 4096 lattice elements "
+                  f"critical, the kx = 64 plane uncritical")
+        ok, restart_s = synced(lambda: verify_restart(bench, rep))
+        check(ok, f"npb {name}: the restart from critical elements failed")
+        check(verify_restart(bench, rep, corrupt="uncritical"),
+              f"npb {name}: uncritical garbage broke verification")
+        if name != "is":         # IS holds no float element to corrupt
+            check(not verify_restart(bench, rep, corrupt="critical"),
+                  f"npb {name}: corrupted critical elements verified")
+        with CheckpointManager([Level(os.path.join(root, name), keep_n=1)],
+                               scrutiny_fn=lambda s: rep, save_mode="device",
+                               restore_mode="device", device=DEV) as mgr:
+            _, save_s = synced(lambda: mgr.save(1, state, block=True))
+            saved = mgr.last_save_stats
+            (step, got), restore_s = synced(lambda: mgr.restore(
+                {k: torch.empty_like(v) for k, v in state.items()}))
+            h2d = mgr.last_restore_stats["h2d_bytes"]
+        check(step == 1, f"npb {name}: restored step {step}")
+        for leaf, v in state.items():
+            mask = rep[leaf].device_mask().view(v.shape)
+            check(same_bytes(got[leaf], torch.where(mask, v,
+                                                    torch.zeros_like(v))),
+                  f"npb {name}({leaf}): restored bytes differ")
+        check(bench.verify(bench.resume(got), bench.reference()),
+              f"npb {name}: the run resumed from disk does not verify")
+        paper = 100 * rep.paper_storage_saved
+        if name in NPB_TABLE3:
+            check(abs(paper - NPB_TABLE3[name]) < 0.5,
+                  f"npb {name}: saved {paper:.2f} %, Table III "
+                  f"{NPB_TABLE3[name]} %")
+        print(summary_table(rep, f"{name} (Table II)"))
+        print(storage_table(rep, f"{name} (Table III)"))
+        full = sum(v.nbytes for v in state.values())
+        print(f"npb {name}: scrutiny_s={scrutiny_s:.4f} "
+              f"restart_s={restart_s:.4f} save_s={save_s:.4f} "
+              f"restore_s={restore_s:.4f} full_bytes={full} "
+              f"d2h_bytes={saved['d2h_bytes']} h2d_bytes={h2d} "
+              f"disk_bytes={_dir_bytes(os.path.join(root, name))} "
+              f"paper_storage_saved={paper:.2f} % "
+              f"storage_saved={100 * rep.storage_saved:.2f} %")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    for k in ("threshold_bitpack", "pack", "mask_scatter", "unpack"):
+        check(launches[k] > 0, f"npb: {k} was never launched: {launches}")
+    print(f"npb: eight programs in {seconds:.1f} s; launches "
+          f"{json.dumps(launches)}")
+    return launches, seconds
+
+
+# ----------------------------------------------------------------------------
 # phase 5: every kernel timed at the main path's shapes
 # ----------------------------------------------------------------------------
 
@@ -1286,6 +1409,7 @@ REPLACES = {
     "pack": "src/repro/kernels/mask_pack/kernel.py:83",
     "delta_flags": "src/repro/kernels/mask_pack/kernel.py:247",
     "mask_scatter": "src/repro/kernels/mask_pack/kernel.py:161",
+    "unpack": "src/repro/kernels/mask_pack/kernel.py:114",
 }
 
 
@@ -1334,7 +1458,10 @@ def sdpa_call(q, k, v):
                                                       is_causal=True)
 
 
-def phase_timing(launches, main, serve_launches, fa_in) -> list:
+def phase_timing(launches, main, serve_launches, fa_in,
+                 npb_launches) -> list:
+    # K5 runs on the NPB path (phase 8): its launches are counted there
+    launches = dict(launches, unpack=npb_launches["unpack"])
     state, sel_w, rep = main["state"], main["sel_w"], main["rep"]
     w = state["w"]
     n = w.numel()
@@ -1391,6 +1518,16 @@ def phase_timing(launches, main, serve_launches, fa_in) -> list:
         lambda: torch.zeros(n, device=DEV).masked_scatter_(sel_w, curr),
         4 * total + n + 4 * n)
     del curr, base, c8, b8
+    torch.cuda.empty_cache()
+    # K5: w back from its tiled pack (K2's tiled form).  It reads the mask
+    # and each tile's critical prefix and writes every element.
+    packed, _ = ops.pack(w, sel_w)
+    k5_bytes = n + 4 * total + 4 * n
+    print(f"K5 bound: mask {n} B + critical prefixes {4 * total} B + "
+          f"output {4 * n} B = {k5_bytes} B at {HBM_BYTES_PER_S:.3g} B/s")
+    row("unpack", lambda: ops.unpack(packed, sel_w, n=n, fill=0.0),
+        lambda: ref.unpack_blocks_ref(packed, sel_w, 0.0), None, k5_bytes)
+    del packed
     torch.cuda.empty_cache()
     # K6 at the serving prefill's shape, on layer 0's q/k/v of that run
     q, k, v, kw = fa_in["q"], fa_in["k"], fa_in["v"], fa_in["kw"]
@@ -1553,7 +1690,9 @@ def main() -> None:
         launches, main_state = phase_main_path(os.path.join(tmp, "main"))
         phase_bench_bytes(os.path.join(tmp, "bench"))
         serve_launches, fa_in = phase_serving(os.path.join(tmp, "serve"))
-        rows = phase_timing(launches, main_state, serve_launches, fa_in)
+        npb_launches, _ = phase_npb(os.path.join(tmp, "npb"))
+        rows = phase_timing(launches, main_state, serve_launches, fa_in,
+                            npb_launches)
         del main_state, fa_in
         train_launches, per_step, train_in = phase_training(
             os.path.join(tmp, "train"))

@@ -2,9 +2,11 @@
 
 The port of ``repro`` (JAX) to an NVIDIA H100: AD scrutiny of checkpoint
 state, the device-packed save, differential chains and the device restore,
-with the mask kernels written by hand in CUDA (``csrc/mask_pack.cu``); and
+with the mask kernels written by hand in CUDA (``csrc/mask_pack.cu``);
 the serving path of the dense GQA models (``Engine``), whose prefill runs
-the flash-attention kernel (``csrc/flash_attention.cu``).
+the flash-attention kernel (``csrc/flash_attention.cu``); training
+(``launch.train``); and the paper's NPB evaluation (``repro_torch.npb``),
+whose §IV-C restart runs the unpack kernel.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 

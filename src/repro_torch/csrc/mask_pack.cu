@@ -1,4 +1,4 @@
-// Hand-written Hopper kernels for the checkpoint mask path (K1-K4).
+// Hand-written Hopper kernels for the checkpoint mask path (K1-K5).
 //
 // Built by repro_torch/kernels/mask_pack/kernel.py at first use:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -7,7 +7,7 @@
 // caller's CUDA stream, launches on that stream, never synchronises and
 // returns cudaGetLastError() so the wrapper can raise on a refused launch.
 //
-// All four kernels move bytes and never do arithmetic on the values they
+// All five kernels move bytes and never do arithmetic on the values they
 // move, so they are exact for every dtype (templated on the element width:
 // 1, 2, 4, 8 or 16 bytes) and for non-finite values.  The TPU versions
 // compacted with a 0/1 permutation matmul, where a single inf or NaN in a
@@ -83,9 +83,9 @@ tile_counts_kernel(const uint8_t* __restrict__ mask, long long n,
   }
 }
 
-// In-tile exclusive scan of the mask: the slot of this thread's element
-// among the critical elements of its tile (ballot + popc within the warp,
-// a 16-entry shared prefix across warps).
+// In-tile exclusive scan of the mask (K2, K4, K5): the slot of this
+// thread's element among the critical elements of its tile (ballot + popc
+// within the warp, a 16-entry shared prefix across warps).
 __device__ __forceinline__ int tile_slot(bool m, int* warp_count) {
   const unsigned b = __ballot_sync(0xffffffffu, m);
   const int lane = threadIdx.x & 31;
@@ -192,6 +192,30 @@ scatter_kernel(const W* __restrict__ payload, long long total,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K5  unpack (the inverse of the tiled K2)
+// Replaces kernels/mask_pack/kernel.py:unpack_blocks_kernel (_unpack_kernel).
+// Bound: bytes.  It reads every mask byte and the critical prefix of each
+// packed tile once and writes every output element once.  Design: K4
+// without the count pass: tile i's values start at packed[i * 512], so
+// the in-tile scan alone gives each critical element its source; each
+// thread writes mask ? packed[tile * 512 + slot] : fill.  The TPU kernel
+// unpacked with the transposed 0/1 permutation matmul, so one non-finite
+// critical value poisoned its tile (0 * inf = NaN); a load cannot.  The
+// ragged last tile is masked here (i < n), with no padded copy.
+// ---------------------------------------------------------------------------
+template <typename W>
+__global__ void __launch_bounds__(kTile)
+unpack_kernel(const W* __restrict__ packed, const uint8_t* __restrict__ mask,
+              long long n, W fill, W* __restrict__ out) {
+  __shared__ int warp_count[kTile / 32];
+  const long long base = (long long)blockIdx.x * kTile;
+  const long long i = base + threadIdx.x;
+  const bool m = i < n && mask[i] != 0;
+  const int slot = tile_slot(m, warp_count);
+  if (i < n) out[i] = m ? packed[base + slot] : fill;
+}
+
 inline unsigned grid_for(long long n, int tile) {
   return static_cast<unsigned>((n + tile - 1) / tile);
 }
@@ -220,6 +244,15 @@ void launch_scatter(const void* payload, long long total, const uint8_t* mask,
   scatter_kernel<W><<<grid_for(n, kTile), kTile, 0, s>>>(
       static_cast<const W*>(payload), total, mask, n, starts,
       fill_from<W>(fill_lo, fill_hi), static_cast<W*>(out));
+}
+
+template <typename W>
+void launch_unpack(const void* packed, const uint8_t* mask, long long n,
+                   unsigned long long fill_lo, unsigned long long fill_hi,
+                   void* out, cudaStream_t s) {
+  unpack_kernel<W><<<grid_for(n, kTile), kTile, 0, s>>>(
+      static_cast<const W*>(packed), mask, n, fill_from<W>(fill_lo, fill_hi),
+      static_cast<W*>(out));
 }
 
 }  // namespace
@@ -296,6 +329,27 @@ int mp_mask_scatter(const void* payload, long long total, const uint8_t* mask,
       break;
     case 16: launch_scatter<U128>(payload, total, mask, n, starts, fill_lo,
                                   fill_hi, out, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int mp_unpack(const void* packed, const uint8_t* mask, long long n,
+              unsigned long long fill_lo, unsigned long long fill_hi,
+              void* out, int itemsize, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (itemsize) {
+    case 1: launch_unpack<uint8_t>(packed, mask, n, fill_lo, fill_hi, out, s);
+      break;
+    case 2: launch_unpack<uint16_t>(packed, mask, n, fill_lo, fill_hi, out, s);
+      break;
+    case 4: launch_unpack<uint32_t>(packed, mask, n, fill_lo, fill_hi, out, s);
+      break;
+    case 8: launch_unpack<unsigned long long>(packed, mask, n, fill_lo,
+                                              fill_hi, out, s); break;
+    case 16: launch_unpack<U128>(packed, mask, n, fill_lo, fill_hi, out, s);
+      break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

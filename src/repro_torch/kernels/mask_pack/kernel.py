@@ -17,6 +17,7 @@ versions live in ``ref.py``; ``ops`` picks them only for CPU tensors.
 | ``pack_into``       | K2 ``kernel.py:pack_blocks_kernel``           |
 | ``delta_flags``     | K3 ``kernel.py:delta_blocks_kernel``          |
 | ``mask_scatter``    | K4 ``kernel.py:scatter_blocks_kernel``        |
+| ``unpack``          | K5 ``kernel.py:unpack_blocks_kernel``         |
 """
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ BITPACK_BLOCK = 1024
 # Launches per wrapper since the last reset_launches(): a run reads these
 # to show that its main path went through the kernels.
 LAUNCHES: Dict[str, int] = {"threshold_bitpack": 0, "pack": 0,
-                            "delta_flags": 0, "mask_scatter": 0}
+                            "delta_flags": 0, "mask_scatter": 0,
+                            "unpack": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -46,6 +48,8 @@ LIBRARY = CudaLibrary("mask_pack", {
     "mp_delta_flags": (_P, _P, _I64, _I64, _P, _P),
     "mp_mask_scatter": (_P, _I64, _P, _I64, _P, ctypes.c_ulonglong,
                         ctypes.c_ulonglong, _P, ctypes.c_int, _P),
+    "mp_unpack": (_P, _P, _I64, ctypes.c_ulonglong, ctypes.c_ulonglong, _P,
+                  ctypes.c_int, _P),
 })
 
 # What the last build did: {"so": path, "seconds": float, "built": bool,
@@ -180,4 +184,30 @@ def mask_scatter(payload: torch.Tensor, mask: torch.Tensor,
                                      payload.element_size(),
                                      stream_of(payload)), "mask_scatter")
     LAUNCHES["mask_scatter"] += 1
+    return out
+
+
+def unpack(packed: torch.Tensor, mask: torch.Tensor,
+           fill: torch.Tensor) -> torch.Tensor:
+    """K5: the flat tiled pack ``packed`` (nb*512,) and the (N,) mask,
+    N <= nb*512 → (N,) tensor with tile ``i``'s values (from
+    ``packed[i*512]`` on) at its critical positions, in order, and ``fill``
+    (a 0-d tensor of the packed dtype) elsewhere."""
+    _require(packed, "unpack")
+    _require(mask, "unpack", (torch.bool, torch.uint8))
+    n = mask.shape[0]
+    if mask.device != packed.device or packed.shape[0] % BLOCK \
+            or packed.shape[0] < n:
+        raise ValueError(f"unpack: needs whole {BLOCK}-element tiles "
+                         f"covering the mask on its device, got "
+                         f"{packed.shape[0]} packed for {n}")
+    if fill.dtype != packed.dtype:
+        raise TypeError("unpack: fill dtype differs from the packed dtype")
+    lib = load_library()
+    out = torch.empty(n, dtype=packed.dtype, device=packed.device)
+    lo, hi = _fill_words(fill)
+    check_launch(lib.mp_unpack(packed.data_ptr(), mask.data_ptr(), n, lo, hi,
+                               out.data_ptr(), packed.element_size(),
+                               stream_of(packed)), "unpack")
+    LAUNCHES["unpack"] += 1
     return out

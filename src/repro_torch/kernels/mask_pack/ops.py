@@ -5,6 +5,9 @@ Device-resident checkpoint path (the save hot path):
     payload, counts = pack_group(flats, masks, totals)   # K2, one payload
     payload_h = fetch(payload)                          # D2H: critical bytes
 
+``unpack`` (K5) is the inverse of the tiled ``pack`` (K2): the restart
+of the NPB programs rebuilds each leaf from its critical-only tiles.
+
 The restore direction mirrors it: ``mask_scatter`` (K4) moves only the
 critical payload H2D (plus the bit-packed mask, expanded on device by
 ``expand_mask_bits``) and re-expands it with ``fill`` at uncritical
@@ -72,6 +75,29 @@ def pack(flat: torch.Tensor, mask: torch.Tensor, *, block: int = BLOCK):
     counts = K.pack_into(flat.contiguous(), mask.contiguous(), packed,
                          tiled=True)
     return packed.view(nb, block), counts
+
+
+def unpack(packed: torch.Tensor, mask: torch.Tensor, *, n: int,
+           block: int = BLOCK, fill=0.0) -> torch.Tensor:
+    """K5, the inverse of :func:`pack`: packed ``(nb, block)`` tiles +
+    (n,) bool ``mask`` → (n,) tensor with ``fill`` (cast to the packed
+    dtype) at uncritical positions.  The restart of the paper's §IV-C
+    (``npb.common.verify_restart``) rebuilds each leaf this way."""
+    mask = mask.reshape(-1)
+    if mask.shape[0] != n:
+        raise ValueError(f"unpack: mask has {mask.shape[0]} elements, n={n}")
+    if packed.dim() != 2 or packed.shape[1] != block \
+            or packed.shape[0] * block < n:
+        raise ValueError(f"unpack: packed {tuple(packed.shape)} does not "
+                         f"hold {n} elements in tiles of {block}")
+    card = _on_card(packed, mask)
+    _check_block(block, BLOCK, card)
+    fill_t = ref.fill_tensor(fill, packed.dtype, packed.device)
+    if not card:
+        return ref.unpack_blocks_ref(packed, mask, fill_t)
+    if n == 0:
+        return packed.reshape(-1)[:0].clone()
+    return K.unpack(packed.contiguous().view(-1), mask.contiguous(), fill_t)
 
 
 def gather_payload(packed: torch.Tensor, counts: torch.Tensor, *,

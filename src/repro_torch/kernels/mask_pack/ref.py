@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four mask_pack kernels.
+"""Plain PyTorch versions of the five mask_pack kernels.
 
 Each function computes exactly what its CUDA kernel in ``kernel.py``
 computes, on tensors of any device: ``ops`` uses them for tensors that lie
@@ -119,6 +119,42 @@ def mask_scatter_ref(payload: torch.Tensor, mask: torch.Tensor, fill,
     src = (starts[:, None] + slot).reshape(-1)[:n].clamp(0, total - 1)
     out[mask] = payload[src[mask]]
     return out
+
+
+_INT_OF_WIDTH = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                 8: torch.int64}
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """An integer view of ``t``'s bytes with a trailing lane axis (one
+    lane, or two int64 lanes for a 16-byte element): torch's CPU gather
+    rewrites bf16 NaN payloads, a gather of integers cannot."""
+    if t.element_size() == 16:
+        return t.view(torch.int64).view(*t.shape, 2)
+    return t.view(_INT_OF_WIDTH[t.element_size()]).unsqueeze(-1)
+
+
+def unpack_blocks_ref(packed: torch.Tensor, mask: torch.Tensor, fill=0.0
+                      ) -> torch.Tensor:
+    """K5, the inverse of the tiled K2: ``packed`` (nb, block) tiles, each
+    left-compacted, and the flat bool ``mask`` (N,), N <= nb*block → (N,)
+    with tile ``i``'s k-th value at its k-th critical position and
+    ``fill`` (cast to the packed dtype) elsewhere.  A per-tile ``cumsum``
+    gives each critical element its slot, a gather fetches it and a
+    ``where`` puts the fill beside it, all on the values' bits, so -0.0,
+    NaN payloads and ±inf come back as they were."""
+    nb, block = packed.shape
+    n = mask.shape[0]
+    m = torch.zeros(nb * block, dtype=torch.bool, device=mask.device)
+    m[:n] = mask
+    mb = m.view(nb, block, 1)
+    slot = (torch.cumsum(mb.to(torch.int32), dim=1) - 1).clamp(0, block - 1)
+    bits = _bits(packed)
+    vals = torch.gather(bits, 1, slot.to(torch.int64).expand(bits.shape))
+    fill_bits = _bits(fill_tensor(fill, packed.dtype, packed.device)
+                      .reshape(1))
+    out = torch.where(mb, vals, fill_bits).reshape(nb * block, -1)[:n]
+    return out.contiguous().view(packed.dtype).reshape(n)
 
 
 def delta_flags_ref(curr8: torch.Tensor, base8: torch.Tensor,

@@ -257,3 +257,85 @@ def test_host_payload_helpers_match_reference(frac):
     assert pay_t.tobytes() == pay_r.tobytes()
     assert T.payload_to_packed(pay_t, to_host(counts_t), 512).tobytes() == \
         R.payload_to_packed(pay_r, np.asarray(counts), 512).tobytes()
+
+
+# --------------------------------------------------------------------------
+# K5: unpack, the inverse of the tiled pack
+# --------------------------------------------------------------------------
+
+UNPACK_DTYPES = ["float16", "bfloat16", "float32", "float64", "complex128",
+                 "int32", "bool"]
+SPECIALS = [np.inf, -np.inf, np.nan, -0.0]
+
+
+def _packed_tiles(n, dtype, m, seed):
+    """(nb, 512) tiles given directly, as the reference array and the
+    port's tensor, with ±inf, NaN and -0.0 among the critical values (each
+    tile's leading slots) of the float dtypes; ``pack_blocks_ref`` itself
+    would turn -0.0 into +0.0."""
+    rng = np.random.RandomState(seed)
+    nb = -(-n // 512)
+    if dtype == "bool":
+        vals = rng.rand(nb, 512) < 0.5
+    elif dtype == "int32":
+        vals = rng.randint(-2 ** 30, 2 ** 30, (nb, 512)).astype(np.int32)
+    else:
+        vals = rng.randn(nb, 512) * 10
+        if dtype == "complex128":
+            vals = vals + 1j * rng.randn(nb, 512)
+        counts = np.bincount(np.arange(n) // 512, weights=m,
+                             minlength=nb).astype(int)
+        for t in np.flatnonzero(counts):
+            k = rng.randint(len(SPECIALS))
+            vals[t, :min(2, counts[t])] = SPECIALS[k]
+    j = jnp.asarray(vals, getattr(jnp, dtype))
+    return j, state_from_numpy({"p": np.asarray(j)}, "cpu")["p"]
+
+
+@pytest.mark.parametrize("dtype", UNPACK_DTYPES)
+@pytest.mark.parametrize("frac", DENSITIES)
+@pytest.mark.parametrize("n", [1, 511, 513, (1 << 20) + 7])
+def test_unpack_matches_reference(dtype, frac, n):
+    m, jm, tm = _mask(n, frac, seed=n + 31)
+    j, t = _packed_tiles(n, dtype, m, seed=n + 32)
+    for fill in (0, 3):
+        o_r = R.unpack(j, jm, n=n, fill=fill, use_kernel=False)
+        o_t = T.unpack(t, tm, n=n, fill=fill)
+        assert _b(o_t) == _b(o_r), fill
+    # and the round trip through the port's own tiled pack
+    o_t = T.unpack(t, tm, n=n)
+    p_t, _ = T.pack(o_t, tm)
+    assert _b(T.unpack(p_t, tm, n=n)) == _b(o_t)
+
+
+def test_unpack_refuses_a_short_pack():
+    m = torch.ones(600, dtype=torch.bool)
+    with pytest.raises(ValueError, match="does not hold"):
+        T.unpack(torch.zeros(1, 512), m, n=600)
+    with pytest.raises(ValueError, match="n=599"):
+        T.unpack(torch.zeros(2, 512), m, n=599)
+
+
+def test_reference_unpack_kernel_poisons_a_tile():
+    """The reference's K5 (``_unpack_kernel``) unpacks with the transposed
+    0/1 permutation matmul, so one +inf among the *critical* values of a
+    tile turns every other critical element of that tile into NaN (0 * inf
+    = NaN); its ``use_kernel=False`` path and the port's plain version keep
+    every value.  (ROADMAP Queue 3; the port's CUDA K5 moves bytes.)"""
+    n = 1024
+    rng = np.random.RandomState(0)
+    m = rng.rand(n) < 0.3
+    vals = rng.randn(n).astype(np.float32)
+    vals[np.flatnonzero(m)[0]] = np.inf
+    packed, _ = R.pack_blocks_ref(jnp.asarray(vals), jnp.asarray(m))
+    poisoned = np.asarray(RK.unpack_blocks_kernel(
+        packed, jnp.asarray(m.astype(np.int8)), interpret=True))
+    tile0 = int(m[:512].sum())
+    assert np.isnan(poisoned[:512]).sum() == tile0 - 1
+    assert not np.isnan(poisoned[512:]).any()
+    clean = np.asarray(R.unpack(packed, jnp.asarray(m), n=n,
+                                use_kernel=False))
+    ours = to_host(T.unpack(torch.from_numpy(np.array(packed)),
+                            torch.from_numpy(m), n=n))
+    want = np.where(m, vals, np.float32(0))
+    assert clean.tobytes() == ours.tobytes() == want.tobytes()

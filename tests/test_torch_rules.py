@@ -3,9 +3,9 @@ kernel wrapper never quietly runs its plain version.
 
 - ``src/repro_torch/**``, ``scripts/*.py`` and ``chip_smoke.py`` import
   neither ``jax`` nor the reference package ``repro``.
-- Entry points run on the card unless ``device="cpu"`` is asked for: with
-  no card they raise, naming that option; a CPU tensor handed to an entry
-  point on the card raises.
+- Entry points (the NPB programs' ``get_benchmark`` too) run on the card
+  unless ``device="cpu"`` is asked for: with no card they raise, naming
+  that option; a CPU tensor handed to an entry point on the card raises.
 - A CUDA kernel wrapper refuses a tensor that is not on the card, and a
   missing compiler is an error, not a fallback, for every kernel library.
 - ``gpu`` cases run the kernels against their plain versions on the card
@@ -34,6 +34,8 @@ from repro_torch.kernels.lru_scan.ref import lru_scan_ref
 from repro_torch.kernels.mask_pack import kernel as K
 from repro_torch.kernels.mask_pack import ops, ref
 from repro_torch.models import init_params
+from repro_torch.npb import get_benchmark
+from repro_torch.npb.common import verify_restart
 
 # Small shapes: one intra-op thread each leaves the cores to the other
 # test workers.
@@ -65,7 +67,11 @@ def test_port_imports_no_jax_and_no_reference(path):
 def test_port_files_were_found():
     names = {p.name for p in PORT_FILES}
     assert {"criticality.py", "manager.py", "kernel.py", "_build.py",
-            "attention.py", "model.py", "engine.py", "chip_smoke.py"} <= names
+            "attention.py", "model.py", "engine.py", "chip_smoke.py",
+            "report.py", "common.py", "bt.py", "sp.py", "lu.py", "mg.py",
+            "cg.py", "ep.py", "ft.py", "is_.py"} <= names
+    assert ROOT / "src" / "repro_torch" / "npb" / "common.py" in PORT_FILES
+    assert ROOT / "src" / "repro_torch" / "core" / "report.py" in PORT_FILES
 
 
 @pytest.fixture
@@ -150,12 +156,15 @@ def _fa_backward_call():
                               torch.zeros(8, dtype=torch.uint8), 2048)),
     (K, lambda: K.mask_scatter(torch.ones(8), torch.ones(8, dtype=torch.bool),
                                torch.tensor(0.0))),
+    (K, lambda: K.unpack(torch.ones(512), torch.ones(8, dtype=torch.bool),
+                         torch.tensor(0.0))),
     (FK, _fa_call),
     (FK, _fa_backward_call),
     (LK, lambda: LK.lru_scan(torch.ones(1, 3, 2), torch.ones(1, 3, 2))),
     (LK, lambda: LK.lru_scan_backward(torch.ones(1, 3, 2), torch.ones(1, 3, 2),
                                       None, torch.ones(1, 3, 2))),
-], ids=["bitpack", "pack", "delta_flags", "mask_scatter", "flash_attention",
+], ids=["bitpack", "pack", "delta_flags", "mask_scatter", "unpack",
+        "flash_attention",
         "flash_attention_backward", "lru_scan", "lru_scan_backward"])
 def test_kernel_wrappers_refuse_host_tensors(mod, call):
     before = dict(mod.LAUNCHES)
@@ -170,7 +179,11 @@ def test_kernel_wrappers_refuse_host_tensors(mod, call):
     lambda t: ops.mask_scatter(t, torch.ones(8, dtype=torch.bool,
                                              device="meta"), n=8),
     lambda t: ops.delta_encode(t, t),
-], ids=["threshold_bitpack", "pack", "mask_scatter", "delta_encode"])
+    lambda t: ops.unpack(t.reshape(1, 8), torch.ones(8, dtype=torch.bool,
+                                                     device="meta"),
+                         n=8, block=8),
+], ids=["threshold_bitpack", "pack", "mask_scatter", "delta_encode",
+        "unpack"])
 def test_ops_raise_on_other_devices(call):
     with pytest.raises(RuntimeError, match="mask_pack"):
         call(torch.ones(8, device="meta"))
@@ -202,6 +215,7 @@ def test_plain_versions_count_no_launches():
     ops.pack_group([x], [m], [int(m.sum())])
     ops.mask_scatter(x[m], m, n=3000)
     ops.delta_encode(x, x)
+    ops.unpack(ops.pack(x, m)[0], m, n=3000)
     q = x[:2400].reshape(1, 20, 4, 30)
     live = q.clone().requires_grad_()
     fa_ops.flash_attention(live, q[:, :, :2], q[:, :, :2], window=5,
@@ -211,6 +225,17 @@ def test_plain_versions_count_no_launches():
     assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0)
     assert FK.LAUNCHES == dict.fromkeys(FK.LAUNCHES, 0)
     assert LK.LAUNCHES == dict.fromkeys(LK.LAUNCHES, 0)
+
+
+def test_npb_path_on_the_cpu_counts_no_launches():
+    """The NPB path (scrutiny, the §IV-C restart through pack and unpack)
+    on CPU tensors runs the plain versions only."""
+    K.reset_launches()
+    bench = get_benchmark("mg", device="cpu")
+    assert verify_restart(bench, bench.scrutinize())
+    assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0)
+    assert set(K.LAUNCHES) == {"threshold_bitpack", "pack", "delta_flags",
+                               "mask_scatter", "unpack"}
 
 
 def test_flash_attention_raises_on_other_devices():
@@ -271,6 +296,46 @@ def test_kernels_match_plain_versions_on_the_card(card, dtype):
         w, wc = ops.threshold_bitpack(x.abs() * m)
         w_r, wc_r = ref.bitpack_ref(x.abs() * m, 0.0)
         assert _same_bytes(w, w_r) and _same_bytes(wc, wc_r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16,
+                                   torch.float32, torch.float64,
+                                   torch.complex128, torch.int32, torch.bool])
+@pytest.mark.parametrize("n", [1, 511, 513, 5003])
+def test_unpack_matches_plain_version_on_the_card(card, dtype, n):
+    """K5 bit for bit against ``unpack_blocks_ref``, ±inf, NaN and -0.0
+    among the packed values, fill 0 and 1, the ragged last tile."""
+    g = torch.Generator(device=card).manual_seed(n)
+    m = torch.rand(n, generator=g, device=card) < 0.3
+    nb = -(-n // 512)
+    if dtype == torch.bool:
+        p = torch.rand((nb, 512), generator=g, device=card) < 0.5
+    else:
+        p = (torch.randn((nb, 512), generator=g, device=card,
+                         dtype=torch.float64) * 100).to(dtype)
+        if dtype != torch.int32:
+            p[:, :4] = torch.tensor([float("inf"), float("-inf"),
+                                     float("nan"), -0.0]).to(dtype)
+    for fill in (0, 1):
+        before = K.LAUNCHES["unpack"]
+        got = ops.unpack(p, m, n=n, fill=fill)
+        assert K.LAUNCHES["unpack"] == before + 1
+        assert _same_bytes(got, ref.unpack_blocks_ref(p, m, fill))
+
+
+@pytest.mark.gpu
+def test_npb_restart_on_the_card(card):
+    """BT's §IV-C restart on the card goes through K1, K2 and K5."""
+    K.reset_launches()
+    bench = get_benchmark("bt")
+    assert bench.device.type == "cuda"
+    rep = bench.scrutinize()
+    assert rep["u"].uncritical == 1500
+    assert verify_restart(bench, rep)
+    assert not verify_restart(bench, rep, corrupt="critical")
+    assert K.LAUNCHES["threshold_bitpack"] > 0
+    assert K.LAUNCHES["pack"] == K.LAUNCHES["unpack"] == 2
 
 
 # (B, Tq, Tk, H, K, D, Dv, window, causal, cap): the serving slice's shapes
