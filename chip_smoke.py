@@ -27,6 +27,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -43,7 +45,7 @@ from repro_torch import _tree  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as FK  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
-    flash_attention_ref)
+    flash_attention_ref, flash_attention_tiled, tiled_attention)
 from repro_torch.kernels.lru_scan import kernel as LK  # noqa: E402
 from repro_torch.kernels.lru_scan import ops as lru_ops  # noqa: E402
 from repro_torch.kernels.lru_scan.ref import lru_scan_ref  # noqa: E402
@@ -117,7 +119,49 @@ def phase_card() -> str:
         print(f"build: {'compiled' if info['built'] else 'cached'} "
               f"{os.path.basename(str(info['so']))} in "
               f"{info['seconds']:.3f} s")
+    fa_build_report()
     return line
+
+
+def fa_build_report() -> None:
+    """K6's kernels as built: registers and spills per instantiation
+    (``-Xptxas -v``), and the tensor-core (HMMA) and f32 FMA (FFMA)
+    instructions in each one's SASS (``cuobjdump -sass``).  Every bf16
+    (``_tc_``) instantiation must run its products on the tensor cores."""
+    info = FK.BUILD_INFO
+    fn, regs = None, {}
+    for ln in str(info["log"]).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and fn:
+            regs.setdefault(fn, {})["spill"] = [int(x) for x in m.groups()]
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            regs.setdefault(fn, {})["regs"] = int(m.group(1))
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(info["so"])],
+                          capture_output=True, text=True, check=True).stdout
+    fn, ops = None, {}
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            ops[fn] = {"HMMA": 0, "FFMA": 0}
+        elif fn:
+            for op in ops[fn]:
+                ops[fn][op] += bool(re.search(rf"\b{op}\b", ln))
+    tc = [f for f in ops if "_tc_kernel" in f]
+    check(len(tc) == 9 and all(ops[f]["HMMA"] > 0 for f in tc),
+          f"K6's bf16 kernels without HMMA in their SASS: {ops}")
+    for f in sorted(ops):
+        name = re.sub(r"^.*?\d+(fa_\w+?_kernel)", r"\1", f)
+        r = regs.get(f, {})
+        print(f"build K6 {name}: registers {r.get('regs', 'cached')}, "
+              f"spill stores/loads {r.get('spill', 'cached')} B, SASS "
+              f"{json.dumps(ops[f])}")
 
 
 # ----------------------------------------------------------------------------
@@ -200,9 +244,13 @@ def phase_kernels() -> int:
     return cases
 
 
-# K6 cases: (B, T, H, K, D, Dv, window, causal, cap, dtype).  The first
-# eight are tests/test_kernels.py:24-33; then ragged T (causal and not),
-# Dv != D, D = 256, and window + softcap in bf16 and f16.
+# K6 cases: (B, T, H, K, D, Dv, window, causal, cap, dtype), T an int or
+# (Tq, Tk).  The first eight are tests/test_kernels.py:24-33; then ragged T
+# (causal and not), Dv != D, D = 256, and window + softcap in bf16 and f16;
+# then the bf16 tensor-core kernels' edges: D and Dv off the 16-column grid
+# (72 and 40; 8; 17 and 9, which take plain loads), T = 1, T one past a
+# 64-row and a 32-query tile, T = 1025, MHA and MQA at D = 256 with a
+# window shorter than T, and Tq != Tk both ways.
 FA_CASES = [
     (1, 128, 4, 4, 64, 64, None, True, None, torch.float32),
     (2, 256, 8, 2, 64, 64, None, True, None, torch.float32),
@@ -220,7 +268,30 @@ FA_CASES = [
     (2, 1000, 8, 4, 256, 256, 100, True, 50.0, torch.bfloat16),
     (2, 1000, 8, 4, 128, 128, 100, True, 50.0, torch.float16),
     (1, 777, 24, 8, 128, 128, 64, True, 30.0, torch.float32),
+] + [
+    (1, 77, 4, 2, 72, 40, 20, True, None, torch.bfloat16),
+    (2, 50, 4, 4, 8, 8, None, False, None, torch.bfloat16),
+    (1, 40, 2, 1, 17, 9, None, True, 20.0, torch.bfloat16),
+    (2, 1, 8, 1, 256, 256, None, True, None, torch.bfloat16),
+    (2, 65, 8, 2, 128, 128, None, True, None, torch.bfloat16),
+    (2, 33, 8, 2, 128, 128, None, False, None, torch.bfloat16),
+    (1, 1025, 4, 1, 128, 128, None, True, None, torch.bfloat16),
+    (1, 300, 4, 4, 256, 256, 100, True, None, torch.bfloat16),
+    (2, 300, 8, 1, 256, 256, 100, True, None, torch.bfloat16),
+    (1, (100, 150), 4, 2, 64, 64, None, True, None, torch.bfloat16),
+    (1, (150, 100), 4, 2, 64, 64, 60, False, 30.0, torch.bfloat16),
 ]
+
+
+def fa_inputs(case, gen):
+    """q, k, v, a cotangent do, and the keyword arguments of a K6 case."""
+    B, T, H, Kh, D, Dv, window, causal, cap, dt = case
+    Tq, Tk = T if isinstance(T, tuple) else (T, T)
+    q, k, v, do = (torch.randn(s, generator=gen, device=DEV).to(dt) for s in
+                   ((B, Tq, H, D), (B, Tk, Kh, D), (B, Tk, Kh, Dv),
+                    (B, Tq, H, Dv)))
+    return q, k, v, do, dict(window=window, causal=causal, scale=D ** -0.5,
+                             attn_cap=cap)
 
 
 def fa_tol(dtype: torch.dtype) -> float:
@@ -326,29 +397,30 @@ FA_BWD_CASES = FA_CASES + [(2, 1024, 10, 1, 256, 256, 2048, True, None, dt)
 
 def phase_flash_attention_backward() -> int:
     """K6's backward (dq, dk, dv) against autograd through
-    flash_attention_ref, at the forward's tolerances."""
+    flash_attention_ref, at the forward's tolerances; a second launch on
+    the same inputs must give the same bytes (no atomics: a restored
+    training run continues bitwise)."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(79)
     per_case = []
     for case in FA_BWD_CASES:
-        B, T, H, Kh, D, Dv, window, causal, cap, dt = case
-        q, k, v = (torch.randn(s, generator=gen, device=DEV).to(dt) for s in
-                   ((B, T, H, D), (B, T, Kh, D), (B, T, Kh, Dv)))
-        do = torch.randn((B, T, H, Dv), generator=gen, device=DEV).to(dt)
-        kw = dict(window=window, causal=causal, scale=D ** -0.5,
-                  attn_cap=cap)
+        q, k, v, do, kw = fa_inputs(case, gen)
         o, lse, o32 = FK.flash_attention(q, k, v, with_lse=True, **kw)
-        got = FK.flash_attention_backward(q, k, v, o if o32 is None else o32,
-                                          lse, do, **kw)
+        o = o if o32 is None else o32
+        got = FK.flash_attention_backward(q, k, v, o, lse, do, **kw)
+        again = FK.flash_attention_backward(q, k, v, o, lse, do, **kw)
+        check(all(same_bytes(a, b) for a, b in zip(got, again)),
+              f"K6 backward {case}: two launches on the same inputs differ")
         _, want = fa_plain_grads(q, k, v, do, **kw)
         what = f"K6 backward {case}"
-        per_case.append(max(fa_err(g, w, fa_tol(dt), f"{what} {tag}")
+        per_case.append(max(fa_err(g, w, fa_tol(q.dtype), f"{what} {tag}")
                             for tag, g, w in zip(("dq", "dk", "dv"), got,
                                                  want)))
     torch.cuda.synchronize()
     print(f"K6 backward: {len(FA_BWD_CASES)} cases within tolerance of "
-          f"autograd through the plain version (f32 2e-5, bf16/f16 2e-2); "
-          f"max |err| per case {json.dumps([round(e, 8) for e in per_case])}"
+          f"autograd through the plain version (f32 2e-5, bf16/f16 2e-2), "
+          f"each deterministic over two launches; max |err| per case "
+          f"{json.dumps([round(e, 8) for e in per_case])}"
           f"; comparison launches {json.dumps(FK.LAUNCHES)}")
     return len(FA_BWD_CASES)
 
@@ -358,14 +430,10 @@ def phase_flash_attention() -> int:
     gen.manual_seed(77)
     worst = {}
     for case in FA_CASES:
-        B, T, H, Kh, D, Dv, window, causal, cap, dt = case
-        q, k, v = (torch.randn(s, generator=gen, device=DEV).to(dt) for s in
-                   ((B, T, H, D), (B, T, Kh, D), (B, T, Kh, Dv)))
-        kw = dict(window=window, causal=causal, scale=D ** -0.5,
-                  attn_cap=cap)
+        q, k, v, _, kw = fa_inputs(case, gen)
         err = fa_err(fa_ops.flash_attention(q, k, v, **kw),
-                     flash_attention_ref(q, k, v, **kw), fa_tol(dt))
-        worst[str(dt)] = max(worst.get(str(dt), 0.0), err)
+                     flash_attention_ref(q, k, v, **kw), fa_tol(q.dtype))
+        worst[str(q.dtype)] = max(worst.get(str(q.dtype), 0.0), err)
     torch.cuda.synchronize()
     print(f"K6: {len(FA_CASES)} cases within tolerance of the plain version "
           f"(f32 2e-5, bf16/f16 2e-2); max |err| {json.dumps(worst)}; "
@@ -578,115 +646,18 @@ CONTINUE = 8                 # tokens decoded from each restored snapshot
 # phi4-shaped logits (width 768) by 0.05, 0.26 and 0.53 at 4, 16 and 32
 # layers (``scripts/serve_bf16_numerics.py depth``).  So the bound is a
 # control measured in the same run: the plain
-# attention in K6's order (``plain_online``) against the plain version, and
-# K6's distance may be at most CONTROL_FACTOR times it.
+# attention in K6's order (``ref.flash_attention_tiled``: f32, the bf16
+# kernels' key tiles) against the plain version, and K6's distance may be
+# at most CONTROL_FACTOR times it.
 CONTROL_FACTOR = 3.0
 
 
-def plain_online(q, k, v, *, window=None, causal=True, scale=None,
-                 attn_cap=None, stats=False):
-    """The control: flash_attention_ref's arithmetic in K6's order (online
-    softmax over 64-key tiles, f32), in plain torch ops.  With ``stats``
-    → (o in f32, row log-sum-exp (B, H, T)), what K6's backward reads."""
-    B, T, H, D = q.shape
-    Kh, Dv = k.shape[2], v.shape[-1]
-    dev = q.device
-    qf = (q.float() * scale).reshape(B, T, Kh, H // Kh, D)
-    qi = torch.arange(T, device=dev)[:, None]
-    m = torch.full((B, Kh, H // Kh, T), -2.3819763e38, device=dev)
-    l = torch.zeros_like(m)
-    acc = torch.zeros(m.shape + (Dv,), device=dev)
-    for k0 in range(0, k.shape[1], 64):
-        kt, vt = k[:, k0:k0 + 64].float(), v[:, k0:k0 + 64].float()
-        s = torch.einsum("btkgd,bskd->bkgts", qf, kt)
-        if attn_cap is not None:
-            s = attn_cap * torch.tanh(s / attn_cap)
-        ki = torch.arange(k0, k0 + kt.shape[1], device=dev)[None, :]
-        ok = torch.ones((T, kt.shape[1]), dtype=torch.bool, device=dev)
-        if causal:
-            ok &= qi >= ki
-        if window is not None:
-            ok &= qi - ki < window
-        s = torch.where(ok, s, torch.full((), -2.3819763e38, device=dev))
-        m_new = torch.maximum(m, s.amax(-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(-1)
-        acc = acc * corr[..., None] + torch.einsum("bkgts,bskd->bkgtd", p,
-                                                   vt)
-        m = m_new
-    denom = l.clamp_min(1e-37)
-    o = (acc / denom[..., None]).permute(0, 3, 1, 2, 4).reshape(B, T, H, Dv)
-    if stats:
-        return o, (m + torch.log(denom)).reshape(B, H, T)
-    return o.to(q.dtype)
-
-
-class KernelOrderAttention(torch.autograd.Function):
-    """The training control: flash_attention_ref's arithmetic in K6's
-    order, forward (``plain_online``) and backward (K6's: P from the row
-    log-sum-exp, Dl = dO·O from the f32 output, dQ summed over 32-key
-    tiles in order, dK and dV per 32-key tile), in plain torch ops."""
-
-    @staticmethod
-    def forward(q, k, v, scale, causal, window, attn_cap):
-        o32, lse = plain_online(q, k, v, window=window, causal=causal,
-                                scale=scale, attn_cap=attn_cap, stats=True)
-        # a copy even in f32, or marking o32 non-differentiable would mark
-        # the output too
-        return o32.to(q.dtype, copy=True), lse, o32
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        q, k, v, ctx.scale, ctx.causal, ctx.window, ctx.cap = inputs
-        _, lse, o32 = output
-        ctx.mark_non_differentiable(lse, o32)
-        ctx.save_for_backward(q, k, v, o32, lse)
-
-    @staticmethod
-    def backward(ctx, do, _dlse, _do32):
-        q, k, v, o32, lse = ctx.saved_tensors
-        B, T, H, D = q.shape
-        Kh = k.shape[2]
-        G = H // Kh
-        dev = q.device
-        qf = (q.float() * ctx.scale).reshape(B, T, Kh, G, D)
-        dof = do.float().reshape(B, T, Kh, G, -1)
-        lse = lse.reshape(B, Kh, G, T)
-        dl = (do.float() * o32).sum(-1).permute(0, 2, 1).reshape(B, Kh, G, T)
-        qi = torch.arange(T, device=dev)[:, None]
-        dq = torch.zeros(qf.shape, device=dev)
-        dk = torch.zeros(k.shape, device=dev)
-        dv = torch.zeros(v.shape, device=dev)
-        for k0 in range(0, k.shape[1], 32):
-            kt, vt = k[:, k0:k0 + 32].float(), v[:, k0:k0 + 32].float()
-            s = torch.einsum("btkgd,bskd->bkgts", qf, kt)
-            dtanh = 1.0
-            if ctx.cap is not None:
-                th = torch.tanh(s / ctx.cap)
-                s, dtanh = ctx.cap * th, 1 - th * th
-            ki = torch.arange(k0, k0 + kt.shape[1], device=dev)[None, :]
-            ok = torch.ones((T, kt.shape[1]), dtype=torch.bool, device=dev)
-            if ctx.causal:
-                ok &= qi >= ki
-            if ctx.window is not None:
-                ok &= qi - ki < ctx.window
-            p = torch.where(ok, torch.exp(s - lse[..., None]),
-                            torch.zeros((), device=dev))
-            dp = torch.einsum("btkgd,bskd->bkgts", dof, vt)
-            ds = p * (dp - dl[..., None]) * dtanh
-            dq += torch.einsum("bkgts,bskd->btkgd", ds, kt)
-            dk[:, k0:k0 + 32] = torch.einsum("bkgts,btkgd->bskd", ds, qf)
-            dv[:, k0:k0 + 32] = torch.einsum("bkgts,btkgd->bskd", p, dof)
-        dq = (dq * ctx.scale).reshape(q.shape)
-        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
-                None, None)
-
-
-def kernel_order_attention(q, k, v, *, window=None, causal=True, scale=None,
-                           attn_cap=None):
-    return KernelOrderAttention.apply(q, k, v, scale, causal, window,
-                                      attn_cap)[0]
+def scale_first_control(q, k, v, *, scale=None, **kw):
+    """The control as it was before the bf16 kernels: q scaled in f32
+    before the product.  Printed beside the control, not a bound."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    return flash_attention_tiled(q.float() * scale, k, v, scale=1.0,
+                                 **kw).to(q.dtype)
 
 
 def _leaves(tree):
@@ -867,7 +838,8 @@ def phase_serving(root: str):
 
     prefills = {}
     for tag, impl in (("k6", compare), ("plain", flash_attention_ref),
-                      ("control", plain_online)):
+                      ("control", flash_attention_tiled),
+                      ("scale_first", scale_first_control)):
         attn_mod.flash_attention = impl
         try:
             prefills[tag] = eng.prefill(batch)[0].float()
@@ -883,6 +855,7 @@ def phase_serving(root: str):
                 float((x.argmax(-1) == plain.argmax(-1)).float().mean()))
 
     k6_d, ctl_d = dist(prefills["k6"]), dist(prefills["control"])
+    first_d = dist(prefills["scale_first"])
     check(k6_d[0] <= CONTROL_FACTOR * ctl_d[0],
           f"prefill logits, K6 against the plain attention: max |Δ| "
           f"{k6_d[0]} > {CONTROL_FACTOR} x the control's {ctl_d[0]}")
@@ -903,8 +876,9 @@ def phase_serving(root: str):
           f"{len(layer_err)} layers {max(layer_err):.6f} (tolerance 2e-2)")
     print(f"serving: prefill logits against the plain attention (max |Δ|, "
           f"relative L2, argmax agreement): K6 {k6_d}, control "
-          f"(plain_online) {ctl_d}; bound {CONTROL_FACTOR} x the control's "
-          f"max |Δ|")
+          f"(flash_attention_tiled) {ctl_d}; bound {CONTROL_FACTOR} x the "
+          f"control's max |Δ|; the control with q scaled before the "
+          f"product {first_d}, K6 {k6_d[0] / first_d[0]:.4f} x its max |Δ|")
     print(f"serving: restored steps 1 and 3 continue {CONTINUE} tokens "
           f"bit-identically; uncritical garbage leaves the logits unchanged, "
           f"8 critical changes do not; peak device memory "
@@ -1021,7 +995,7 @@ def _grad_distances(cfg, params, batch):
     """Relative L2 distances of the gradient from the plain path's
     (flash_attention_ref, lru_scan_ref), of the whole tree and of its
     farthest leaf: for the kernels; for the control, the plain path in the
-    kernels' summation order (``KernelOrderAttention``; the plain scan is
+    kernels' summation order (``ref.TiledAttention``; the plain scan is
     already in K7's order); and for the kernels with each of ``PLANTED``.
     → {run: (whole, farthest leaf, its name)}, losses."""
     from repro_torch.models import attention as attn_mod
@@ -1060,7 +1034,7 @@ def _grad_distances(cfg, params, batch):
             setattr(mod, name, _zeroed(kernel, index))
         try:
             losses[what], g = grads(
-                *((kernel_order_attention, lru_scan_ref)
+                *((tiled_attention, lru_scan_ref)
                   if what == "control" else real))
         finally:
             if fault is not None:
@@ -1266,7 +1240,7 @@ def phase_training(root: str):
           f"{json.dumps(kc.rel)}")
     print(f"training: gradient relative L2 distance from the plain path "
           f"(whole tree, farthest leaf, its name), bound {CONTROL_FACTOR} x "
-          f"the control's (KernelOrderAttention) on either: "
+          f"the control's (TiledAttention) on either: "
           f"{json.dumps(dists)}; each planted fault breaks the bound; "
           f"losses {json.dumps(grad_losses)}")
     print(f"training: scrutiny of the state after step {SAVE_STEP}: "
@@ -1557,7 +1531,9 @@ def phase_timing(launches, main, serve_launches, fa_in,
           f"({t_bytes:.4f} ms) at B={B} T={T} H={H} K={Kh} D={D} "
           f"{str(q.dtype)} causal={kw['causal']}")
     for r in rows:
-        print(f"time {r['name']}: kernel {r['ms']:.4f} ms, bound "
+        rate = (f", {flops / r['ms'] / 1e9:.1f} TFLOP/s"
+                if r["name"] == "flash_attention" else "")
+        print(f"time {r['name']}: kernel {r['ms']:.4f} ms{rate}, bound "
               f"{r['bound_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']}")
     return rows
@@ -1665,7 +1641,9 @@ def phase_timing_training(launches, per_step, inputs) -> list:
           f"bytes at B={B} T={T} H={H} K={Kh} D={D} Dv={Dv} {q.dtype} "
           f"causal={kw['causal']} window={kw['window']}")
     for r in rows:
-        print(f"time {r['name']}: kernel {r['ms']:.4f} ms, bound "
+        rate = (f", {flops / r['ms'] / 1e9:.1f} TFLOP/s"
+                if r["name"] == "flash_attention_backward" else "")
+        print(f"time {r['name']}: kernel {r['ms']:.4f} ms{rate}, bound "
               f"{r['bound_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']}, launches {r['launches']} "
               f"({per_step[r['name']]} per train step)")

@@ -13,15 +13,13 @@ gradient terms in bf16.  About 4 GB of memory.
 
 ``depth``: phi4-mini shaped at width 768 (vocab 8192), bf16 compute, B=2,
 T=256; the prefill logits of the plain attention against the same
-attention summed in another order (``chip_smoke.plain_online``: online
-softmax over 64-key tiles), at 4, 16 and 32 layers: how far one-ulp
+attention summed in another order (``ref.flash_attention_tiled``: online
+softmax over K6's 64-key tiles), at 4, 16 and 32 layers: how far one-ulp
 differences grow with depth.
 """
 
 import argparse
 import dataclasses
-import os
-import sys
 
 import numpy as np
 import torch
@@ -30,11 +28,8 @@ from repro_torch import Engine, ScrutinyConfig, get_config, scrutinize
 from repro_torch.models import compute_params, decode_step, init_params
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import prefill
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))))
-from chip_smoke import plain_online  # noqa: E402  (K6's summation order)
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_ref, flash_attention_tiled)
 
 
 def _mask_mismatches(rep, pos):
@@ -89,7 +84,7 @@ def depth() -> None:
         out = {}
         try:
             for tag, fa in (("plain", flash_attention_ref),
-                            ("online", plain_online)):
+                            ("online", flash_attention_tiled)):
                 attn_mod.flash_attention = fa
                 with torch.no_grad():
                     out[tag] = prefill(cfg, params, {"tokens": toks},

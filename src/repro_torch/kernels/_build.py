@@ -28,8 +28,10 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]                 # src/repro_torch
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
+# -Xptxas -v: each kernel's registers, shared memory and spills go into
+# the build log (``CudaLibrary.info["log"]``)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:

@@ -12,6 +12,12 @@ checks device, dtype, contiguity and shapes, allocates its outputs,
 launches on ``torch.cuda.current_stream()``, raises on a non-zero launch
 status and adds one to its count in :data:`LAUNCHES` (the backward's two
 passes count as one launch of ``flash_attention_backward``).
+
+The library routes by dtype: bf16 inputs run the tensor-core kernels
+(``mma.sync`` bf16 products, P and dS split into three bf16 terms), f32
+and f16 inputs the CUDA-core kernels.  A bf16 call that cannot launch its
+kernel raises; nothing falls back to the other route or to the plain
+version.
 """
 
 from __future__ import annotations
@@ -25,6 +31,10 @@ from repro_torch.kernels._build import CudaLibrary, check_launch, stream_of
 
 MAX_HEAD_DIM = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# The dtypes the library routes to the tensor-core kernels.  Their dK/dV
+# pass writes f32 per-head partials (B, Tk, H, D + Dv) into scratch that
+# the wrapper allocates; the CUDA-core kernels of the others take none.
+TENSOR_CORE_DTYPES = frozenset({torch.bfloat16})
 
 # Launches since the last reset_launches(): a run reads it to show that
 # its prefill or its training steps went through the kernels.
@@ -39,9 +49,9 @@ LIBRARY = CudaLibrary("flash_attention", {
     "fa_backward_dq": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        _I, _I, ctypes.c_float, _I, _I, ctypes.c_float, _I,
                        _P),
-    "fa_backward_dkdv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I, _I, ctypes.c_float, _I, _I, ctypes.c_float, _I,
-                         _P),
+    "fa_backward_dkdv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _I, _I, ctypes.c_float, _I, _I, ctypes.c_float,
+                         _I, _P),
 })
 BUILD_INFO = LIBRARY.info
 
@@ -136,7 +146,9 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     the forward's o32, or o itself for f32 inputs), its lse, and do (the
     output's shape, the inputs' dtype) → (dq, dk, dv) in the inputs'
     dtype.  Two launches on the current stream: the dQ pass (which also
-    writes the f32 row sums dO·O) and the dK/dV pass that reads them."""
+    writes the f32 row sums dO·O) and the dK/dV pass that reads them (for
+    bf16, into f32 per-head partials that a third kernel sums over each
+    GQA group in a fixed order)."""
     what = "flash_attention_backward"
     _check(what, q, k, v, window)
     B, Tq, Tk, H, K, D, Dv = _shape_args(q, k, v)
@@ -151,6 +163,9 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     lib = load_library()
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     dl = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    part = (torch.empty(B * Tk * H * (D + Dv), dtype=torch.float32,
+                        device=q.device)
+            if q.dtype in TENSOR_CORE_DTYPES else None)
     tail = (B, Tq, Tk, H, K, D, Dv, *_mask_args(scale, causal, window,
                                                  attn_cap),
             _DTYPE_CODE[q.dtype], stream_of(q))
@@ -160,7 +175,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
         what)
     check_launch(lib.fa_backward_dkdv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), dl.data_ptr(), dk.data_ptr(), dv.data_ptr(), *tail),
-        what)
+        lse.data_ptr(), dl.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        None if part is None else part.data_ptr(), *tail), what)
     LAUNCHES["flash_attention_backward"] += 1
     return dq, dk, dv

@@ -16,6 +16,13 @@ magnitude in f32.  The autograd Function that carries the CUDA kernels on
 the card is driven with stand-ins of the kernels built from the plain
 version, under plain autograd and ``torch.func.vjp`` (the scrutiny).
 
+The controls in K6's order (``ref.flash_attention_tiled`` and
+``ref.TiledAttention``, over the kernels' key tiles in f32), which
+``chip_smoke.py`` bounds K6's distance with, compute the reference's
+function: forward against ``flash_attention_ref`` and gradients under
+``torch.func.vjp`` against ``jax.grad`` through it, 2e-5 in f32 and 2e-2
+for bf16 inputs (of each gradient's largest magnitude).
+
 The CUDA kernels themselves are held against the plain version on the
 card by the ``gpu`` cases of ``tests/test_torch_rules.py`` (the card's
 machine has no JAX, and this file imports it) and by ``chip_smoke.py``.
@@ -33,6 +40,7 @@ from repro.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.convert import state_from_numpy
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention import ref as ref_t
 from repro_torch.kernels.flash_attention.ref import (
     flash_attention_ref as flash_ref_t)
 
@@ -226,3 +234,72 @@ def test_card_route_writes_lse_only_for_autograd(monkeypatch):
     for o in got:
         torch.testing.assert_close(o, want, atol=0, rtol=0)
 
+
+
+# The controls in K6's order.  (B, T, H, K, D, Dv, window, causal, cap,
+# dtype): T past one key tile with a ragged last tile, GQA and MQA, the
+# window, the softcap and Dv != D, non-causal, and bf16 inputs.
+TILED_CASES = [
+    (1, 150, 4, 2, 32, 32, None, True, None, "float32"),
+    (1, 130, 4, 1, 16, 8, 40, True, 5.0, "float32"),
+    (2, 70, 2, 2, 16, 16, None, False, None, "float32"),
+    (1, 150, 4, 2, 32, 32, 50, True, 30.0, "bfloat16"),
+]
+
+
+def test_tiled_control_follows_the_kernels_tiles():
+    assert ref_t.FWD_KEY_TILE == 64 and ref_t.BWD_KEY_TILE == 64
+
+
+@pytest.mark.parametrize("case", TILED_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_tiled_control_forward_matches_reference(case):
+    B, T, H, K_, D, Dv, window, causal, cap, dtype = case
+    np_qkv = _qkv(B, T, H, K_, D, dtype, seed=T + 7, Dv=Dv)
+    kw = dict(window=window, causal=causal, scale=D ** -0.5, attn_cap=cap)
+    want = np.asarray(flash_attention_ref(*(jnp.asarray(a) for a in np_qkv),
+                                          **kw), np.float32)
+    q, k, v = (state_from_numpy(a, "cpu") for a in np_qkv)
+    tol = _tol(dtype)
+    got = ref_t.flash_attention_tiled(q, k, v, **kw)
+    assert got.dtype == q.dtype
+    np.testing.assert_allclose(got.float().numpy(), want, atol=tol, rtol=tol)
+    o32, lse = ref_t.flash_attention_tiled(q, k, v, stats=True, **kw)
+    np.testing.assert_allclose(o32.numpy(), want, atol=tol, rtol=tol)
+    # lse is the row log-sum-exp of the masked scores
+    s = torch.einsum("bthd,bshd->bhts", q.float(),
+                     k.float().repeat_interleave(H // K_, 2)) * kw["scale"]
+    if cap is not None:
+        s = cap * torch.tanh(s / cap)
+    qi, ki = torch.arange(T)[:, None], torch.arange(T)[None, :]
+    ok = (qi >= ki) if causal else torch.ones(T, T, dtype=torch.bool)
+    if window is not None:
+        ok &= qi - ki < window
+    torch.testing.assert_close(
+        lse, torch.logsumexp(s.masked_fill(~ok, -torch.inf), -1),
+        atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("case", TILED_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_tiled_control_gradients_match_reference_grad(case):
+    B, T, H, K_, D, Dv, window, causal, cap, dtype = case
+    np_qkv = _qkv(B, T, H, K_, D, dtype, seed=T + 8, Dv=Dv)
+    ct = np.asarray(jnp.asarray(
+        np.random.RandomState(T + 9).randn(B, T, H, Dv),
+        getattr(jnp, dtype)))
+    kw = dict(window=window, causal=causal, scale=D ** -0.5, attn_cap=cap)
+    want = jax.jit(jax.grad(
+        lambda q, k, v: jnp.sum((flash_attention_ref(q, k, v, **kw)
+                                 * ct).astype(jnp.float32)),
+        argnums=(0, 1, 2)))(*(jnp.asarray(a) for a in np_qkv))
+    q, k, v = (state_from_numpy(a, "cpu") for a in np_qkv)
+    _, vjp = torch.func.vjp(
+        lambda q, k, v: ref_t.tiled_attention(q, k, v, **kw), q, k, v)
+    got = vjp(state_from_numpy(ct, "cpu"))
+    tol = _tol(dtype)
+    for g, w in zip(got, want):
+        w = np.asarray(w, np.float32)
+        assert g.dtype == q.dtype
+        np.testing.assert_allclose(g.float().numpy(), w,
+                                   atol=tol * np.abs(w).max(), rtol=tol)

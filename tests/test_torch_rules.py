@@ -339,13 +339,17 @@ def test_npb_restart_on_the_card(card):
 
 
 # (B, Tq, Tk, H, K, D, Dv, window, causal, cap): the serving slice's shapes
-# at small T, ragged T, non-causal, D = 256 and Dv != D
+# at small T, ragged T, non-causal, D = 256 and Dv != D; then two edges of
+# the bf16 tensor-core kernels: D and Dv off the 16-column grid with a
+# window, and MQA at D = 256 with a window shorter than T
 FA_CARD_CASES = [
     (2, 128, 128, 8, 2, 128, 128, None, True, None),
     (1, 17, 17, 4, 4, 64, 64, None, True, None),
     (1, 200, 200, 4, 1, 64, 64, None, False, None),
     (2, 100, 100, 2, 2, 256, 256, 16, True, 50.0),
     (1, 70, 70, 6, 3, 96, 32, None, True, None),
+    (1, 77, 77, 4, 2, 72, 40, 20, True, None),
+    (2, 300, 300, 8, 1, 256, 256, 100, True, None),
 ]
 
 
