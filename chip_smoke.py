@@ -168,6 +168,20 @@ def fa_build_report() -> None:
 # phase 2: every kernel against its plain version, bit for bit
 # ----------------------------------------------------------------------------
 
+def word_forms(sel: torch.Tensor) -> dict:
+    """The mask ``sel`` as K2 and K4 read it, ``np.packbits`` words, in
+    three forms that must give the same bytes: as packed, with the tail
+    bits past N set, and at an odd address (copied by the wrapper)."""
+    n = sel.numel()
+    words = ops.mask_to_words(sel)
+    tail = words.clone()
+    if n % 8:
+        tail[-1] |= (1 << (8 - n % 8)) - 1
+    odd = torch.empty(words.numel() + 1, dtype=torch.uint8, device=DEV)[1:]
+    odd.copy_(tail)
+    return {"words": words, "tail bits set": tail, "odd address": odd}
+
+
 def phase_kernels() -> int:
     gen = torch.Generator(device=DEV)
     gen.manual_seed(1234)
@@ -175,6 +189,17 @@ def phase_kernels() -> int:
     for n in SIZES:
         for frac in DENSITIES:
             sel = selector(n, frac, gen)
+            forms = word_forms(sel)
+            check(same_bytes(forms["words"], ref.bitpack_ref(
+                sel.to(torch.float32), 0.0)[0]),
+                  f"mask_to_words n={n} frac={frac}")
+            # the dense pack's leaves: a 3-element all-critical head puts
+            # the later leaves at odd offsets of the payload
+            head = min(3, n)
+            head_w = ops.mask_to_words(torch.ones(head, dtype=torch.bool,
+                                                  device=DEV))
+            half = sel[: n // 2]
+            half_w = ops.mask_to_words(half)
             # K1: f32 / f64 magnitudes, zero where not selected, plus NaN
             for dt in (torch.float32, torch.float64):
                 mag = torch.rand(n, generator=gen, device=DEV,
@@ -191,11 +216,12 @@ def phase_kernels() -> int:
                 inexact = dt.is_floating_point or dt.is_complex
                 xs = [x] + ([poison(x, sel)] if inexact else [])
                 for v in xs:
-                    # K2 tiled and dense forms
-                    p, c = ops.pack(v, sel)
+                    # K2 tiled form, from each form of the words
                     p_r, c_r = ref.pack_blocks_ref(v, sel)
-                    check(same_bytes(p, p_r) and same_bytes(c, c_r),
-                          f"K2 tiled {dt} n={n} frac={frac}")
+                    for how, w in forms.items():
+                        p, c = ops.pack(v, w)
+                        check(same_bytes(p, p_r) and same_bytes(c, c_r),
+                              f"K2 tiled {dt} n={n} frac={frac} {how}")
                     # K5 back from the tiles, fill 0 and a non-zero fill;
                     # the critical values come back as they went in
                     for fill in (0, 1):
@@ -204,20 +230,23 @@ def phase_kernels() -> int:
                                                                   fill))
                               and same_bytes(o[sel], v[sel]),
                               f"K5 {dt} n={n} frac={frac} fill={fill}")
+                    # K2 dense form (pack_group), K4 back from its payload
                     total = int(c_r.sum())
-                    pay, cg = ops.pack_group([v, v[: n // 2]],
-                                             [sel, sel[: n // 2]],
-                                             [total, int(sel[: n // 2].sum())])
-                    pay_r = torch.cat([ref.pack_payload_ref(v, sel, total)[0],
-                                       v[: n // 2][sel[: n // 2]]])
-                    check(same_bytes(pay, pay_r),
-                          f"K2 dense {dt} n={n} frac={frac}")
-                    # K4 scatter back, fill 0 and a non-zero fill
-                    for fill in (0, 1):
-                        o = ops.mask_scatter(pay[:total], sel, n=n, fill=fill)
-                        o_r = ref.mask_scatter_ref(pay[:total], sel, fill)
-                        check(same_bytes(o, o_r),
-                              f"K4 {dt} n={n} frac={frac} fill={fill}")
+                    pay_w = ref.pack_payload_ref(v, sel, total)[0]
+                    pay_r = torch.cat([v[:head], pay_w, v[: n // 2][half]])
+                    for how, w in forms.items():
+                        pay, cg = ops.pack_group(
+                            [v[:head], v, v[: n // 2]], [head_w, w, half_w],
+                            [head, total, int(half.sum())])
+                        check(same_bytes(pay, pay_r),
+                              f"K2 dense {dt} n={n} frac={frac} {how}")
+                        for fill in (0, 1):
+                            o = ops.mask_scatter(pay[head:head + total], w,
+                                                 n=n, fill=fill)
+                            o_r = ref.mask_scatter_ref(pay_w, sel, fill)
+                            check(same_bytes(o, o_r),
+                                  f"K4 {dt} n={n} frac={frac} fill={fill} "
+                                  f"{how}")
                     cases += 1
                     if dt.is_complex:
                         continue     # delta saves write complex leaves whole
@@ -523,7 +552,7 @@ def phase_main_path(root: str):
     rep, scrutiny_warm_s = synced(lambda: scrutinize(
         resume, state, config=ScrutinyConfig(probes=4), device=DEV))
     for name, sel in want.items():
-        check(torch.equal(rep[name].device_mask(), sel),
+        check(torch.equal(rep[name].device_words(), ops.mask_to_words(sel)),
               f"scrutiny mask of {name} differs from its selector")
     check(rep["step"].all_critical, "step must be critical by policy")
 
@@ -1161,7 +1190,10 @@ def phase_training(root: str):
                   f"{leaf.critical} of {leaf.total}")
             crit["params" if name.startswith("params/") else "other"] += \
                 leaf.total
+    torch.cuda.reset_peak_memory_stats()
     save("scrutinized", lambda s: rep)
+    save_peak = torch.cuda.max_memory_allocated()
+    save_held = torch.cuda.memory_allocated()    # the report still alive
     del rep
     torch.cuda.empty_cache()
     # what both restores must give back exactly: all but the moments
@@ -1211,7 +1243,8 @@ def phase_training(root: str):
     gap = [s_ - w for s_, w in zip(scr, want)]
     del st, keep, like
     torch.cuda.empty_cache()
-    peak = max(peak_before, torch.cuda.max_memory_allocated())
+    peak = max(peak_before, scrutiny_peak, save_peak,
+               torch.cuda.max_memory_allocated())
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the training path was never launched: {launches}")
 
@@ -1261,7 +1294,10 @@ def phase_training(root: str):
     print(f"training: launcher smoke (first loss, loss at 30, loss at 40 "
           f"after --resume, seconds of the first run) {json.dumps(smoke)}")
     print(f"training: peak device memory {peak / 2 ** 30:.2f} GiB (during "
-          f"the scrutiny {scrutiny_peak / 2 ** 30:.2f} GiB); phase "
+          f"the scrutiny {scrutiny_peak / 2 ** 30:.2f} GiB, during the "
+          f"scrutinized save {save_peak / 2 ** 30:.2f} GiB, held after it "
+          f"with the report alive {save_held / 2 ** 30:.2f} GiB: the save "
+          f"reads the report's words, no byte mask is cached); phase "
           f"{time.perf_counter() - t_phase:.1f} s")
     print(f"training: launches {json.dumps(launches)}; per train step "
           f"{json.dumps(per_step)}; mask kernels {json.dumps(mask_launches)}"
@@ -1462,16 +1498,34 @@ def phase_timing(launches, main, serve_launches, fa_in,
         lambda: torch.cat([x.view(torch.uint8) for x in
                            ref.bitpack_ref(mag, 0.0)]),
         None, 4 * n + n // 8 + 4 * (n // 1024))
-    # K2: the dense payload of w (as pack_group emits it).  A value is read
-    # only where its mask is set, so the bound counts the 32-byte sectors
-    # of w that hold a critical element, not all of w.
+    # K2 and K4 read the report's resident words (1 bit per element); the
+    # byte mask sel_w, expanded already, is the old yardstick's input.
+    words_w = rep["w"].device_words()
+    expand = ops.expand_mask_bits
+
+    def bounds(name, words_bytes, rest, library_words):
+        """Print the bound from words beside the byte-mask bound of PR 14's
+        design (N mask bytes) and the library route from words; return
+        the bytes of the bound from words."""
+        new, old = words_bytes + rest, n + rest
+        lib_words = median_ms(library_words)
+        print(f"{name} bound from words: {new} B = "
+              f"{new / HBM_BYTES_PER_S * 1e3:.4f} ms; from a byte mask "
+              f"{old} B = {old / HBM_BYTES_PER_S * 1e3:.4f} ms; library "
+              f"from words (expand_mask_bits + the call) {lib_words:.4f} ms")
+        return new
+
+    # K2: the dense payload of w (as pack_group emits it), both counts
+    # included.  A value is read only where its bit is set, so the bound
+    # counts the 32-byte sectors of w that hold a critical element.
     sectors = int(sel_w.view(-1, 32 // w.element_size()).any(1).sum())
     print(f"K2 bound: {sectors} of {n * w.element_size() // 32} sectors "
           f"of w hold a critical element")
-    row("pack", lambda: ops.pack_group([w], [sel_w], [total])[0],
-        lambda: ref.pack_payload_ref(w, sel_w, total)[0],
-        lambda: torch.masked_select(w, sel_w),
-        n + 32 * sectors + 4 * total + 4 * (n // 512))
+    k2_bytes = bounds("K2", n // 8, 32 * sectors + 4 * total + 4 * (n // 512),
+                      lambda: torch.masked_select(w, expand(words_w, n=n)))
+    row("pack", lambda: ops.pack_group([w], [words_w], [total])[0],
+        lambda: ref.pack_payload_ref(w, expand(words_w, n=n), total)[0],
+        lambda: torch.masked_select(w, sel_w), k2_bytes)
     # K3: w's payload against a base that differs in its first 1 MiB
     curr = torch.masked_select(w, sel_w)
     base = curr.clone()
@@ -1485,17 +1539,20 @@ def phase_timing(launches, main, serve_launches, fa_in,
         lambda: (c8[:full8].view(-1, 2048) != b8[:full8].view(-1, 2048))
         .any(1),
         2 * nbytes8 + -(-nbytes8 // 2048))
-    # K4: the restore expand of w's payload
+    # K4: the restore expand of w's payload, its count pass included
+    k4_bytes = bounds("K4", n // 8, 4 * total + 4 * n,
+                      lambda: torch.zeros(n, device=DEV).masked_scatter_(
+                          expand(words_w, n=n), curr))
     row("mask_scatter",
-        lambda: ops.mask_scatter(curr, sel_w, n=n, fill=0.0),
-        lambda: ref.mask_scatter_ref(curr, sel_w, 0.0),
+        lambda: ops.mask_scatter(curr, words_w, n=n, fill=0.0),
+        lambda: ref.mask_scatter_ref(curr, expand(words_w, n=n), 0.0),
         lambda: torch.zeros(n, device=DEV).masked_scatter_(sel_w, curr),
-        4 * total + n + 4 * n)
+        k4_bytes)
     del curr, base, c8, b8
     torch.cuda.empty_cache()
     # K5: w back from its tiled pack (K2's tiled form).  It reads the mask
     # and each tile's critical prefix and writes every element.
-    packed, _ = ops.pack(w, sel_w)
+    packed, _ = ops.pack(w, words_w)
     k5_bytes = n + 4 * total + 4 * n
     print(f"K5 bound: mask {n} B + critical prefixes {4 * total} B + "
           f"output {4 * n} B = {k5_bytes} B at {HBM_BYTES_PER_S:.3g} B/s")

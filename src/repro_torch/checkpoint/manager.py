@@ -233,20 +233,20 @@ class _SaveSnapshot:
                 continue
             key = (leaf_dtype_name(leaf), str(leaf.device))
             g = self._groups.setdefault(
-                key, {"names": [], "flats": [], "masks": [], "totals": []})
+                key, {"names": [], "flats": [], "words": [], "totals": []})
             g["names"].append(name)
             g["flats"].append(leaf.detach().reshape(-1))
-            g["masks"].append(rep.device_mask(leaf.device))
+            g["words"].append(rep.device_words(leaf.device))
             g["totals"].append(int(rep.critical))
         for g in self._groups.values():
             payload, counts = mask_ops.pack_group(
-                g["flats"], g["masks"], g["totals"])
+                g["flats"], g["words"], g["totals"])
             ranges, lo = {}, 0
             for n_, t in zip(g["names"], g["totals"]):
                 ranges[n_] = (lo, lo + t)
                 lo += t
             g["payload"], g["counts"], g["ranges"] = payload, counts, ranges
-            del g["flats"], g["masks"]       # the payload is the snapshot
+            del g["flats"], g["words"]       # the payload is the snapshot
         if on_card:
             self.ready = torch.cuda.Event()
             self.ready.record()

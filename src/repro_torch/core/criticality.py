@@ -84,6 +84,11 @@ class LeafReport:
         element H2D); :class:`DeviceLeafReport` returns its resident one."""
         return torch.from_numpy(np.ascontiguousarray(self.mask)).to(device)
 
+    def device_words(self, device) -> torch.Tensor:
+        """The mask as ``np.packbits`` words on ``device`` (1 bit per
+        element H2D), as K2 and K4 read it."""
+        return torch.from_numpy(np.packbits(self.mask)).to(device)
+
 
 @dataclasses.dataclass(frozen=True)
 class CriticalityReport:
@@ -151,8 +156,9 @@ class DeviceLeafReport:
     materialize to the host lazily (and cache), costing one D2H of
     1 bit/element (packed words) resp. one accumulator-width transfer
     (magnitudes) on first access, recorded in the report's
-    ``stats["d2h_bytes"]``.  ``device_mask()`` expands the resident words
-    on device with no host round-trip.
+    ``stats["d2h_bytes"]``.  ``device_words()`` hands the resident words to
+    the device save path as they are; ``device_mask()`` expands them on
+    device (and caches the byte mask) for K5 and the NPB restart.
     """
 
     __slots__ = ("name", "shape", "dtype", "policy", "n", "device",
@@ -213,6 +219,20 @@ class DeviceLeafReport:
                                             device=self.device)
         return self._mask_dev
 
+    def device_words(self, device=None) -> torch.Tensor:
+        """The mask as ``np.packbits`` words on the report's device: the
+        resident words of an AD leaf, full or empty words (tail bits 0,
+        as ``BitMask.full``) for a policy leaf.  Nothing is cached."""
+        del device                       # the words are resident already
+        if self.words_dev is not None:
+            return self.words_dev
+        full = self.all_critical and self.n > 0
+        words = torch.full(((self.n + 7) // 8,), 0xFF if full else 0,
+                           dtype=torch.uint8, device=self.device)
+        if full and self.n % 8:
+            words[-1] = (0xFF << (8 - self.n % 8)) & 0xFF
+        return words
+
     @property
     def mask_words(self) -> np.ndarray:
         """Bit-packed mask words on the host (``np.packbits`` order — also
@@ -261,8 +281,8 @@ class DeviceReport(CriticalityReport):
 
     Satisfies the :class:`CriticalityReport` API through the lazy host
     materialization of :class:`DeviceLeafReport`, while
-    ``leaves[name].device_mask()`` / ``.words_dev`` stay resident for the
-    checkpoint manager's device save path.
+    ``leaves[name].device_words()`` stay resident for the checkpoint
+    manager's device save path.
     """
 
     def __init__(self, leaves: Dict[str, DeviceLeafReport],

@@ -65,64 +65,211 @@ bitpack_kernel(const T* __restrict__ mag, T tol, long long n,
 }
 
 // ---------------------------------------------------------------------------
-// Shared by K2 and K4: critical elements per 512-element tile of a byte mask.
+// K2 and K4 read the mask as np.packbits words, the ceil(N/8) bytes that K1
+// writes and a checkpoint's bitmap stores: element 8k is the MSB of byte k.
+// A 512-element tile is 64 bytes, 16 groups of 32 elements, one 32-bit word
+// each.  The wrappers hand over a 16-byte aligned words pointer.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kTile)
-tile_counts_kernel(const uint8_t* __restrict__ mask, long long n,
+constexpr int kGroups = kTile / 32;   // 32-element groups per tile
+constexpr int kCountThreads = 256;    // count pass: 16 B (128 elements) each
+constexpr int kMoveThreads = 256;     // move passes: one warp per tile
+
+// Four packbits-order bytes, loaded as a little-endian word, in lane order:
+// bit l is element 32g + l.  It undoes K1's store: __brev reverses the
+// byte order and the bits within each byte, the byte permute restores the
+// byte order, so the pair reverses the bits within each byte.
+__device__ __forceinline__ uint32_t lane_order(uint32_t w) {
+  return __byte_perm(__brev(w), 0, 0x0123);
+}
+
+// The four word bytes of elements [e0, e0 + 32), e0 a multiple of 32, as
+// loaded (packbits order).  A word inside the mask is one aligned 4-byte
+// load; the ragged last word is read byte by byte, so nothing past the
+// ceil(n/8) bytes is read.
+__device__ __forceinline__ uint32_t group_word(
+    const uint8_t* __restrict__ words, long long e0, long long n) {
+  if (e0 >= n) return 0u;
+  if (e0 + 32 <= n)
+    return *reinterpret_cast<const uint32_t*>(words + (e0 >> 3));
+  const long long nbytes = (n + 7) >> 3;
+  uint32_t w = 0;
+  int shift = 0;
+  for (long long k = e0 >> 3; k < nbytes; ++k, shift += 8)
+    w |= static_cast<uint32_t>(words[k]) << shift;
+  return w;
+}
+
+// group_word's bytes as lane-order bits; bits at or past n are 0 whatever
+// the words hold there.
+__device__ __forceinline__ uint32_t group_bits(uint32_t word, long long e0,
+                                               long long n) {
+  const uint32_t b = lane_order(word);
+  return e0 + 32 <= n ? b : e0 < n ? b & ((1u << (n - e0)) - 1u) : 0u;
+}
+
+// ---------------------------------------------------------------------------
+// K2/K4 count pass: critical elements per 512-element tile, from the words.
+// Replaces the byte-mask tile_counts_kernel: it reads N/8 bytes, not N.
+// Bound: bytes, the words read once and 4 B per tile written.  Design:
+// each thread pops one 16-byte vector (128 elements: a count needs no bit
+// order), four neighbouring lanes sum a tile with two shuffles.  The ragged
+// end is read byte by byte and the last byte's bits past n are taken off.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kCountThreads)
+word_counts_kernel(const uint8_t* __restrict__ words, long long n,
                    int32_t* __restrict__ counts) {
-  __shared__ int warp_count[kTile / 32];
-  const long long i = (long long)blockIdx.x * kTile + threadIdx.x;
-  const bool m = i < n && mask[i] != 0;
-  const unsigned b = __ballot_sync(0xffffffffu, m);
-  if ((threadIdx.x & 31) == 0) warp_count[threadIdx.x >> 5] = __popc(b);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int c = 0;
-    for (int w = 0; w < kTile / 32; ++w) c += warp_count[w];
-    counts[blockIdx.x] = c;
+  const long long nbytes = (n + 7) >> 3;
+  const long long b0 =
+      ((long long)blockIdx.x * kCountThreads + threadIdx.x) * 16;
+  int c = 0;
+  if (b0 + 16 <= nbytes) {
+    const uint4 v = *reinterpret_cast<const uint4*>(words + b0);
+    c = __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
+  } else {
+    for (long long k = b0; k < nbytes; ++k) c += __popc(words[k]);
   }
+  if ((n & 7) && b0 < nbytes && nbytes <= b0 + 16)
+    c -= __popc(words[nbytes - 1] & ((1u << (8 - (n & 7))) - 1u));
+  c += __shfl_down_sync(0xffffffffu, c, 2);
+  c += __shfl_down_sync(0xffffffffu, c, 1);
+  const long long tile = b0 >> 6;                  // 64 bytes per tile
+  if ((threadIdx.x & 3) == 0 && tile * kTile < n) counts[tile] = c;
 }
 
-// In-tile exclusive scan of the mask (K2, K4, K5): the slot of this
-// thread's element among the critical elements of its tile (ballot + popc
-// within the warp, a 16-entry shared prefix across warps).
-__device__ __forceinline__ int tile_slot(bool m, int* warp_count) {
-  const unsigned b = __ballot_sync(0xffffffffu, m);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) warp_count[warp] = __popc(b);
-  __syncthreads();
-  int before = 0;
-  for (int w = 0; w < warp; ++w) before += warp_count[w];
-  return before + __popc(b & ((1u << lane) - 1u));
+// A warp's view of the tile at element e0, from lane g's group_word (lanes
+// 0-15): lane g gets group g's lane-order bits and the tile's critical
+// elements before group g (a shuffle scan).  Returns the tile's count, on
+// every lane.
+__device__ __forceinline__ int tile_groups(uint32_t word, long long e0,
+                                           long long n, int lane,
+                                           uint32_t* bits, int* before) {
+  const uint32_t b = lane < kGroups ? group_bits(word, e0 + 32 * lane, n)
+                                    : 0u;
+  int incl = __popc(b);
+  for (int off = 1; off < kGroups; off <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += y;
+  }
+  *bits = b;
+  *before = incl - __popc(b);
+  return __shfl_sync(0xffffffffu, incl, kGroups - 1);
+}
+
+// What a warp loads for tile t before it can move any value: lanes 0-15
+// the tile's words, every lane its start (ends[t] - counts[t] for the
+// dense payload, t * 512 tiled).  The move loops load tile t + stride's
+// right after issuing tile t's value loads, so both latencies overlap.
+struct TileHead {
+  uint32_t word;
+  long long start;
+};
+
+__device__ __forceinline__ TileHead tile_head(
+    const uint8_t* __restrict__ words, long long n,
+    const int32_t* __restrict__ counts, const long long* __restrict__ ends,
+    long long t, int lane) {
+  TileHead h{0u, t * kTile};
+  if (lane < kGroups) h.word = group_word(words, t * kTile + 32 * lane, n);
+  if (ends != nullptr) h.start = ends[t] - counts[t];
+  return h;
+}
+
+// K4's move works in 16-byte lanes: per step a lane covers kE =
+// 16 / sizeof(W) consecutive elements (4 f32, 16 bool), so a warp covers
+// 512 bytes and a tile takes kSteps = 16 / kE steps.  Lane16 holds them
+// as one 16-byte vector.
+template <typename W>
+struct Lane16 {
+  static constexpr int kE = 16 / static_cast<int>(sizeof(W));
+  static constexpr int kSteps = kTile / (32 * kE);
+  union {
+    uint4 u;
+    W x[kE];
+  };
+};
+
+// Step c's span for this lane: its kE mask bits (bit k: element r0 + k of
+// the tile) and the payload rank of its first critical element.
+struct Span {
+  int r0;            // first element, in the tile
+  uint32_t mine;     // its kE bits
+  long long rank;    // start + critical elements of the tile before r0
+};
+
+template <int kE>
+__device__ __forceinline__ Span lane_span(int c, int lane, uint32_t bits,
+                                          int before, long long start) {
+  const int r0 = (32 * c + lane) * kE;
+  const uint32_t w = __shfl_sync(0xffffffffu, bits, r0 >> 5);
+  const int b = __shfl_sync(0xffffffffu, before, r0 >> 5);
+  const int off = r0 & 31;
+  return Span{r0, (w >> off) & ((1u << kE) - 1u),
+              start + b + __popc(w & ((1u << off) - 1u))};
 }
 
 // ---------------------------------------------------------------------------
-// K2  pack (left-compaction of critical elements)
+// K2  pack (left-compaction of critical elements), from the words
 // Replaces kernels/mask_pack/kernel.py:pack_blocks_kernel (_pack_kernel)
 // and fuses the inter-tile gather of ref.py:gather_payload_ref.
-// Bound: bytes.  It reads every mask byte, loads a value only where the
-// mask is set (so only the 32-byte sectors that hold a critical value
-// must come from memory), and writes only the critical values.  Design: the tile's destination ``starts[tile]``
-// comes from an exclusive scan of tile_counts_kernel's counts (taken by
-// the wrapper); each critical element finds its slot by an in-tile scan
-// and is stored straight at starts[tile] + slot, so one launch writes the
-// dense payload (starts[tile] = tile*512 gives the tiled, zero-tailed
-// form).  No matmul, no intermediate tiled buffer.  Stores past ``cap``
-// are dropped, so an inconsistent count can never write out of bounds.
+// Bound: bytes.  It reads the N/8 words, loads a value only where its bit
+// is set (only the 32-byte sectors that hold a critical value must come
+// from memory) and writes the critical values once.  The byte-mask design
+// before it read N mask bytes twice and ran one element per thread with a
+// __syncthreads and a serial 16-warp prefix per 512-element block.
+// Design: warp-cooperative compaction.  A warp owns a whole tile at a time
+// (grid-stride over the tiles, as many blocks as fit on the card).  Lanes
+// 0-15 load the tile's 16 words (64 B) and scan their counts with
+// shuffles: no shared memory, no __syncthreads.  For each group its word
+// is broadcast, lane l loads src[e0 + 32g + l] only if bit l is set, and
+// stores it at start + before[g] + popc(word & lanes below l), so a
+// group's critical values leave as one contiguous run.  The 16 groups'
+// loads are issued before any store, to keep bytes in flight, and then
+// the next tile's words and start (TileHead), so a warp waits on one
+// memory latency per tile, not two.  (16-byte loads per lane, tried on
+// the card, gained nothing once the stores were made contiguous again.)
+// The tile's start is ends[t] - counts[t] (ends: the inclusive scan of the
+// count pass, taken by the wrapper) for the dense payload, or t * 512 for
+// the tiled, zero-tailed form, which needs no count pass (no ``ends``: the
+// kernel writes the tile counts itself).  Stores past ``cap`` are dropped,
+// so an inconsistent count can never write out of bounds.
 // ---------------------------------------------------------------------------
 template <typename W>
-__global__ void __launch_bounds__(kTile)
-pack_kernel(const W* __restrict__ src, const uint8_t* __restrict__ mask,
-            long long n, const long long* __restrict__ starts,
-            W* __restrict__ dst, long long cap) {
-  __shared__ int warp_count[kTile / 32];
-  const long long i = (long long)blockIdx.x * kTile + threadIdx.x;
-  const bool m = i < n && mask[i] != 0;
-  const int slot = tile_slot(m, warp_count);
-  if (m) {
-    const long long d = starts[blockIdx.x] + slot;
-    if (d < cap) dst[d] = src[i];
+__global__ void __launch_bounds__(kMoveThreads)
+pack_kernel(const W* __restrict__ src, const uint8_t* __restrict__ words,
+            long long n, const int32_t* __restrict__ counts,
+            const long long* __restrict__ ends, W* __restrict__ dst,
+            long long cap, int32_t* __restrict__ tile_counts) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const long long tiles = (n + kTile - 1) / kTile;
+  const long long warps = (long long)gridDim.x * (kMoveThreads / 32);
+  long long t = ((long long)blockIdx.x * kMoveThreads + threadIdx.x) >> 5;
+  TileHead next = t < tiles ? tile_head(words, n, counts, ends, t, lane)
+                            : TileHead{0u, 0};
+  for (; t < tiles; t += warps) {
+    const long long e0 = t * kTile;
+    const long long start = next.start;
+    uint32_t bits;
+    int before;
+    const int count = tile_groups(next.word, e0, n, lane, &bits, &before);
+    W v[kGroups];
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      const uint32_t b = __shfl_sync(0xffffffffu, bits, g);
+      if (b >> lane & 1u) v[g] = src[e0 + 32 * g + lane];
+    }
+    if (t + warps < tiles)
+      next = tile_head(words, n, counts, ends, t + warps, lane);
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      const uint32_t b = __shfl_sync(0xffffffffu, bits, g);
+      const int off = __shfl_sync(0xffffffffu, before, g);
+      if (b >> lane & 1u) {
+        const long long d = start + off + __popc(b & below);
+        if (d < cap) dst[d] = v[g];
+      }
+    }
+    if (ends == nullptr && lane == 0) tile_counts[t] = count;
   }
 }
 
@@ -162,44 +309,94 @@ delta_kernel(const uint8_t* __restrict__ curr,
 }
 
 // ---------------------------------------------------------------------------
-// K4  mask scatter (fused restore expand)
+// K4  mask scatter (fused restore expand), from the words
 // Replaces kernels/mask_pack/kernel.py:scatter_blocks_kernel
 // (_scatter_kernel).
-// Bound: bytes.  It reads the mask and the critical payload once and
-// writes every output element once.  Design: the same tile counts + scan
-// as K2 give each tile's payload start; the in-tile scan gives the slot;
-// each thread writes mask ? payload[start + slot] : fill.  No two-block
+// Bound: bytes.  It reads the N/8 words and the critical payload once and
+// writes every output element once.  The byte-mask design before it read N
+// mask bytes twice, one element per thread with a block-wide scan.
+// Design: the inverse of K2's move, with the same count pass, ends,
+// 16-byte lanes and prefetched tile heads.  A warp owns a tile; each step a
+// lane fills 16 bytes of elements, payload[start + before[g] + rank] where
+// the bit is set (a contiguous run of the payload per step) and ``fill``
+// elsewhere, and writes them with one 16-byte store, so a warp's store is
+// 512 contiguous bytes (the ragged end element by element; the output is a
+// fresh, aligned tensor).  A critical position past the payload's end
+// reads its last element (total - 1, the reference's clip).  No two-block
 // window or matmul: every output is a load or the fill bytes.
 // ---------------------------------------------------------------------------
 template <typename W>
-__global__ void __launch_bounds__(kTile)
+__global__ void __launch_bounds__(kMoveThreads)
 scatter_kernel(const W* __restrict__ payload, long long total,
-               const uint8_t* __restrict__ mask, long long n,
-               const long long* __restrict__ starts, W fill,
+               const uint8_t* __restrict__ words, long long n,
+               const int32_t* __restrict__ counts,
+               const long long* __restrict__ ends, W fill,
                W* __restrict__ out) {
-  __shared__ int warp_count[kTile / 32];
-  const long long i = (long long)blockIdx.x * kTile + threadIdx.x;
-  const bool m = i < n && mask[i] != 0;
-  const int slot = tile_slot(m, warp_count);
-  if (i < n) {
-    W v = fill;
-    if (m) {
-      long long s = starts[blockIdx.x] + slot;
-      if (s > total - 1) s = total - 1;
-      v = payload[s];
+  using L = Lane16<W>;
+  const int lane = threadIdx.x & 31;
+  const long long tiles = (n + kTile - 1) / kTile;
+  const long long warps = (long long)gridDim.x * (kMoveThreads / 32);
+  long long t = ((long long)blockIdx.x * kMoveThreads + threadIdx.x) >> 5;
+  TileHead next = t < tiles ? tile_head(words, n, counts, ends, t, lane)
+                            : TileHead{0u, 0};
+  for (; t < tiles; t += warps) {
+    const long long e0 = t * kTile;
+    uint32_t bits;
+    int before;
+    tile_groups(next.word, e0, n, lane, &bits, &before);
+    L v[L::kSteps];
+#pragma unroll
+    for (int c = 0; c < L::kSteps; ++c) {
+      const Span sp = lane_span<L::kE>(c, lane, bits, before, next.start);
+      long long s = sp.rank;
+#pragma unroll
+      for (int k = 0; k < L::kE; ++k) {
+        v[c].x[k] = fill;
+        if (sp.mine >> k & 1u) {
+          v[c].x[k] = payload[s < total - 1 ? s : total - 1];
+          ++s;
+        }
+      }
     }
-    out[i] = v;
+    if (t + warps < tiles)
+      next = tile_head(words, n, counts, ends, t + warps, lane);
+#pragma unroll
+    for (int c = 0; c < L::kSteps; ++c) {
+      const long long e = e0 + (32 * c + lane) * L::kE;
+      if (e + L::kE <= n) {
+        *reinterpret_cast<uint4*>(out + e) = v[c].u;
+      } else {
+#pragma unroll
+        for (int k = 0; k < L::kE; ++k)
+          if (e + k < n) out[e + k] = v[c].x[k];
+      }
+    }
   }
+}
+
+// In-tile exclusive scan of a byte mask (K5): the slot of this thread's
+// element among the critical elements of its tile (ballot + popc within
+// the warp, a 16-entry shared prefix across warps).
+__device__ __forceinline__ int tile_slot(bool m, int* warp_count) {
+  const unsigned b = __ballot_sync(0xffffffffu, m);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) warp_count[warp] = __popc(b);
+  __syncthreads();
+  int before = 0;
+  for (int w = 0; w < warp; ++w) before += warp_count[w];
+  return before + __popc(b & ((1u << lane) - 1u));
 }
 
 // ---------------------------------------------------------------------------
 // K5  unpack (the inverse of the tiled K2)
 // Replaces kernels/mask_pack/kernel.py:unpack_blocks_kernel (_unpack_kernel).
 // Bound: bytes.  It reads every mask byte and the critical prefix of each
-// packed tile once and writes every output element once.  Design: K4
-// without the count pass: tile i's values start at packed[i * 512], so
-// the in-tile scan alone gives each critical element its source; each
-// thread writes mask ? packed[tile * 512 + slot] : fill.  The TPU kernel
+// packed tile once and writes every output element once.  Design: one
+// element per thread on a byte mask (the NPB restart holds one); tile i's
+// values start at packed[i * 512], so the in-tile scan alone gives each
+// critical element its source; each thread writes
+// mask ? packed[tile * 512 + slot] : fill.  The TPU kernel
 // unpacked with the transposed 0/1 permutation matmul, so one non-finite
 // critical value poisoned its tile (0 * inf = NaN); a load cannot.  The
 // ragged last tile is masked here (i < n), with no padded copy.
@@ -220,6 +417,22 @@ inline unsigned grid_for(long long n, int tile) {
   return static_cast<unsigned>((n + tile - 1) / tile);
 }
 
+// Blocks for a move pass (one warp per tile, grid-stride): one per tile's
+// worth of warps, at most as many as the card holds at once.
+template <typename Kernel>
+unsigned move_grid(Kernel kernel, long long n) {
+  const long long tiles = (n + kTile - 1) / kTile;
+  const long long want = (tiles + kMoveThreads / 32 - 1) / (kMoveThreads / 32);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                kMoveThreads, 0);
+  const long long most = (long long)(sms > 0 ? sms : 1) *
+                         (per_sm > 0 ? per_sm : 1);
+  return static_cast<unsigned>(want < most ? want : most);
+}
+
 template <typename W>
 W fill_from(unsigned long long lo, unsigned long long hi) {
   unsigned long long buf[2] = {lo, hi};
@@ -229,20 +442,21 @@ W fill_from(unsigned long long lo, unsigned long long hi) {
 }
 
 template <typename W>
-void launch_pack(const void* src, const uint8_t* mask, long long n,
-                 const long long* starts, void* dst, long long cap,
-                 cudaStream_t s) {
-  pack_kernel<W><<<grid_for(n, kTile), kTile, 0, s>>>(
-      static_cast<const W*>(src), mask, n, starts, static_cast<W*>(dst), cap);
+void launch_pack(const void* src, const uint8_t* words, long long n,
+                 const int32_t* counts, const long long* ends, void* dst,
+                 long long cap, int32_t* tile_counts, cudaStream_t s) {
+  pack_kernel<W><<<move_grid(pack_kernel<W>, n), kMoveThreads, 0, s>>>(
+      static_cast<const W*>(src), words, n, counts, ends,
+      static_cast<W*>(dst), cap, tile_counts);
 }
 
 template <typename W>
-void launch_scatter(const void* payload, long long total, const uint8_t* mask,
-                    long long n, const long long* starts,
-                    unsigned long long fill_lo, unsigned long long fill_hi,
-                    void* out, cudaStream_t s) {
-  scatter_kernel<W><<<grid_for(n, kTile), kTile, 0, s>>>(
-      static_cast<const W*>(payload), total, mask, n, starts,
+void launch_scatter(const void* payload, long long total,
+                    const uint8_t* words, long long n, const int32_t* counts,
+                    const long long* ends, unsigned long long fill_lo,
+                    unsigned long long fill_hi, void* out, cudaStream_t s) {
+  scatter_kernel<W><<<move_grid(scatter_kernel<W>, n), kMoveThreads, 0, s>>>(
+      static_cast<const W*>(payload), total, words, n, counts, ends,
       fill_from<W>(fill_lo, fill_hi), static_cast<W*>(out));
 }
 
@@ -277,26 +491,37 @@ int mp_bitpack_f64(const double* mag, double tol, long long n,
   return static_cast<int>(cudaGetLastError());
 }
 
-int mp_tile_counts(const uint8_t* mask, long long n, int32_t* counts,
+// K2/K4's count pass: ceil(n/512) int32 counts from the words.
+int mp_word_counts(const uint8_t* words, long long n, int32_t* counts,
                    void* stream) {
   if (n > 0)
-    tile_counts_kernel<<<grid_for(n, kTile), kTile, 0,
-                         static_cast<cudaStream_t>(stream)>>>(mask, n, counts);
+    word_counts_kernel<<<grid_for(4 * grid_for(n, kTile), kCountThreads),
+                         kCountThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(words, n,
+                                                              counts);
   return static_cast<int>(cudaGetLastError());
 }
 
-int mp_pack(const void* src, const uint8_t* mask, long long n,
-            const long long* starts, void* dst, long long cap, int itemsize,
+// K2's move.  Dense: ``counts`` and ``ends`` from the count pass, the
+// payload in ``dst``.  Tiled: ``ends`` null, tile t at dst + t * 512, its
+// count written to ``tile_counts``.
+int mp_pack(const void* src, const uint8_t* words, long long n,
+            const int32_t* counts, const long long* ends, void* dst,
+            long long cap, int32_t* tile_counts, int itemsize,
             void* stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (itemsize) {
-    case 1: launch_pack<uint8_t>(src, mask, n, starts, dst, cap, s); break;
-    case 2: launch_pack<uint16_t>(src, mask, n, starts, dst, cap, s); break;
-    case 4: launch_pack<uint32_t>(src, mask, n, starts, dst, cap, s); break;
-    case 8: launch_pack<unsigned long long>(src, mask, n, starts, dst, cap, s);
-      break;
-    case 16: launch_pack<U128>(src, mask, n, starts, dst, cap, s); break;
+    case 1: launch_pack<uint8_t>(src, words, n, counts, ends, dst, cap,
+                                 tile_counts, s); break;
+    case 2: launch_pack<uint16_t>(src, words, n, counts, ends, dst, cap,
+                                  tile_counts, s); break;
+    case 4: launch_pack<uint32_t>(src, words, n, counts, ends, dst, cap,
+                                  tile_counts, s); break;
+    case 8: launch_pack<unsigned long long>(src, words, n, counts, ends, dst,
+                                            cap, tile_counts, s); break;
+    case 16: launch_pack<U128>(src, words, n, counts, ends, dst, cap,
+                               tile_counts, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -311,24 +536,25 @@ int mp_delta_flags(const uint8_t* curr, const uint8_t* base, long long nbytes,
   return static_cast<int>(cudaGetLastError());
 }
 
-int mp_mask_scatter(const void* payload, long long total, const uint8_t* mask,
-                    long long n, const long long* starts,
-                    unsigned long long fill_lo, unsigned long long fill_hi,
-                    void* out, int itemsize, void* stream) {
+int mp_mask_scatter(const void* payload, long long total,
+                    const uint8_t* words, long long n, const int32_t* counts,
+                    const long long* ends, unsigned long long fill_lo,
+                    unsigned long long fill_hi, void* out, int itemsize,
+                    void* stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (itemsize) {
-    case 1: launch_scatter<uint8_t>(payload, total, mask, n, starts, fill_lo,
-                                    fill_hi, out, s); break;
-    case 2: launch_scatter<uint16_t>(payload, total, mask, n, starts, fill_lo,
-                                     fill_hi, out, s); break;
-    case 4: launch_scatter<uint32_t>(payload, total, mask, n, starts, fill_lo,
-                                     fill_hi, out, s); break;
-    case 8: launch_scatter<unsigned long long>(payload, total, mask, n, starts,
-                                               fill_lo, fill_hi, out, s);
-      break;
-    case 16: launch_scatter<U128>(payload, total, mask, n, starts, fill_lo,
-                                  fill_hi, out, s); break;
+    case 1: launch_scatter<uint8_t>(payload, total, words, n, counts, ends,
+                                    fill_lo, fill_hi, out, s); break;
+    case 2: launch_scatter<uint16_t>(payload, total, words, n, counts, ends,
+                                     fill_lo, fill_hi, out, s); break;
+    case 4: launch_scatter<uint32_t>(payload, total, words, n, counts, ends,
+                                     fill_lo, fill_hi, out, s); break;
+    case 8: launch_scatter<unsigned long long>(payload, total, words, n,
+                                               counts, ends, fill_lo,
+                                               fill_hi, out, s); break;
+    case 16: launch_scatter<U128>(payload, total, words, n, counts, ends,
+                                  fill_lo, fill_hi, out, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

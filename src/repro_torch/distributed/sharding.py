@@ -27,11 +27,13 @@ def leaf_segments(leaf) -> Optional[list]:
     return None
 
 
-def _flat_mask(mask, device) -> torch.Tensor:
+def _flat_words(mask, device) -> torch.Tensor:
+    """A bool mask (tensor or host array) as ``np.packbits`` words on
+    ``device``, the form K2 reads; a host mask is packed before it moves."""
     if isinstance(mask, torch.Tensor):
-        return mask.reshape(-1)
-    return torch.from_numpy(np.ascontiguousarray(mask, dtype=bool)
-                            .reshape(-1)).to(device)
+        return mask_ops.mask_to_words(mask.reshape(-1).to(device))
+    return torch.from_numpy(np.packbits(np.asarray(mask, dtype=bool)
+                                        .reshape(-1))).to(device)
 
 
 def pack_sharded_payload(leaf: torch.Tensor, mask, *, block: int = BLOCK):
@@ -39,7 +41,7 @@ def pack_sharded_payload(leaf: torch.Tensor, mask, *, block: int = BLOCK):
     device→host.  Returns ``(payload, counts, d2h_bytes)`` with ``payload``
     a host array in flat (C) order (bf16 as uint16 bits)."""
     return mask_ops.pack_critical(leaf.reshape(-1),
-                                  _flat_mask(mask, leaf.device), block=block)
+                                  _flat_words(mask, leaf.device), block=block)
 
 
 def pack_sharded_payload_device(leaf: torch.Tensor, mask, *,
@@ -48,7 +50,7 @@ def pack_sharded_payload_device(leaf: torch.Tensor, mask, *,
     stays on the leaf's device as the delta base; only the per-tile counts
     cross D2H.  Returns ``(payload_dev, counts_h, d2h_bytes)``."""
     packed, counts = mask_ops.pack(leaf.reshape(-1),
-                                   _flat_mask(mask, leaf.device), block=block)
+                                   _flat_words(mask, leaf.device), block=block)
     counts_h = counts.cpu().numpy()                  # D2H: 4 B / tile
     total = int(counts_h.sum())
     payload = mask_ops.gather_payload(packed, counts, total=total)
@@ -59,15 +61,16 @@ def scatter_sharded_payload(payload: np.ndarray, mask: np.ndarray, shape,
                             dtype: str, device, *, fill=0,
                             block: int = BLOCK):
     """Restore inverse of :func:`pack_sharded_payload`: move only the
-    critical ``payload`` (host array of dtype ``dtype``) and the bit-packed
-    mask H2D, expand the bits on ``device`` and scatter the payload into a
-    fill-initialized tensor (K4).  Returns ``(tensor, h2d_bytes)``."""
+    critical ``payload`` (host array of dtype ``dtype``) and the mask's
+    ``np.packbits`` words H2D and scatter the payload under the words into
+    a fill-initialized tensor on ``device`` (K4 reads the words as they
+    are).  Returns ``(tensor, h2d_bytes)``."""
     shape = tuple(shape)
     n = int(np.prod(shape)) if shape else 1
     mask = np.asarray(mask, bool).reshape(-1)
     payload = np.asarray(payload).reshape(-1)
     bits = np.packbits(mask)
-    m_dev = mask_ops.expand_mask_bits(torch.from_numpy(bits).to(device), n=n)
-    out = mask_ops.mask_scatter(from_host(payload, dtype, device), m_dev,
-                                n=n, fill=fill, block=block)
+    out = mask_ops.mask_scatter(from_host(payload, dtype, device),
+                                torch.from_numpy(bits).to(device), n=n,
+                                fill=fill, block=block)
     return out.reshape(shape), payload.nbytes + bits.nbytes

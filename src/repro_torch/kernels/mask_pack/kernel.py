@@ -7,17 +7,21 @@ the CPU tests import this module on a machine without ``nvcc`` or a card.
 
 Every wrapper takes CUDA tensors only: it checks device, dtype, contiguity
 and shape, allocates its outputs with ``torch.empty``/``torch.zeros``,
-launches on ``torch.cuda.currentstream_of()``, raises if the launch returned
-an error, and adds one to its entry in :data:`LAUNCHES`.  The plain
-versions live in ``ref.py``; ``ops`` picks them only for CPU tensors.
+launches on PyTorch's current stream (``stream_of``), raises if the launch
+returned an error, and adds one to its entry in :data:`LAUNCHES`.  The
+plain versions live in ``ref.py``; ``ops`` picks them only for CPU tensors.
 
-| wrapper             | TPU kernel it replaces                        |
-| ------------------- | --------------------------------------------- |
-| ``bitpack``         | K1 ``kernel.py:bitpack_blocks_kernel``        |
-| ``pack_into``       | K2 ``kernel.py:pack_blocks_kernel``           |
-| ``delta_flags``     | K3 ``kernel.py:delta_blocks_kernel``          |
-| ``mask_scatter``    | K4 ``kernel.py:scatter_blocks_kernel``        |
-| ``unpack``          | K5 ``kernel.py:unpack_blocks_kernel``         |
+| wrapper          | TPU kernel it replaces                 | mask it reads   |
+| ---------------- | -------------------------------------- | --------------- |
+| ``bitpack``      | K1 ``kernel.py:bitpack_blocks_kernel`` | (writes words)  |
+| ``pack_into``    | K2 ``kernel.py:pack_blocks_kernel``    | packbits words  |
+| ``delta_flags``  | K3 ``kernel.py:delta_blocks_kernel``   | none            |
+| ``mask_scatter`` | K4 ``kernel.py:scatter_blocks_kernel`` | packbits words  |
+| ``unpack``       | K5 ``kernel.py:unpack_blocks_kernel``  | bool, 1 B each  |
+
+K2 and K4 take the mask as the ``np.packbits``-order words that K1 writes
+and a checkpoint's bitmap stores, (ceil(N/8),) uint8: 1 bit per element
+read, where a bool mask costs a byte.
 """
 
 from __future__ import annotations
@@ -43,10 +47,10 @@ _I64 = ctypes.c_longlong
 LIBRARY = CudaLibrary("mask_pack", {
     "mp_bitpack_f32": (_P, ctypes.c_float, _I64, _P, _P, _P),
     "mp_bitpack_f64": (_P, ctypes.c_double, _I64, _P, _P, _P),
-    "mp_tile_counts": (_P, _I64, _P, _P),
-    "mp_pack": (_P, _P, _I64, _P, _P, _I64, ctypes.c_int, _P),
+    "mp_word_counts": (_P, _I64, _P, _P),
+    "mp_pack": (_P, _P, _I64, _P, _P, _P, _I64, _P, ctypes.c_int, _P),
     "mp_delta_flags": (_P, _P, _I64, _I64, _P, _P),
-    "mp_mask_scatter": (_P, _I64, _P, _I64, _P, ctypes.c_ulonglong,
+    "mp_mask_scatter": (_P, _I64, _P, _I64, _P, _P, ctypes.c_ulonglong,
                         ctypes.c_ulonglong, _P, ctypes.c_int, _P),
     "mp_unpack": (_P, _P, _I64, ctypes.c_ulonglong, ctypes.c_ulonglong, _P,
                   ctypes.c_int, _P),
@@ -95,45 +99,58 @@ def bitpack(mag: torch.Tensor, tol: float):
     return words.view(torch.uint8)[:(n + 7) // 8], counts
 
 
-def _tile_counts(lib, mask: torch.Tensor) -> torch.Tensor:
-    n = mask.shape[0]
+def _words(words: torch.Tensor, n: int, what: str) -> torch.Tensor:
+    """The (ceil(n/8),) uint8 words, 16-byte aligned for the kernels'
+    vector loads (a fresh allocation is; a view at an odd offset is
+    copied)."""
+    _require(words, what, (torch.uint8,))
+    if words.shape[0] != (n + 7) // 8:
+        raise ValueError(f"{what}: {words.shape[0]} mask bytes for {n} "
+                         f"elements, not {(n + 7) // 8}")
+    return words if words.data_ptr() % 16 == 0 else words.clone()
+
+
+def _counts_and_ends(lib, words: torch.Tensor, n: int):
+    """K2/K4's count pass: the int32 critical count of every 512-element
+    tile, and their int64 inclusive scan (a tile's values start at
+    ``ends - counts``)."""
     counts = torch.empty(-(-n // BLOCK), dtype=torch.int32,
-                         device=mask.device)
-    check_launch(lib.mp_tile_counts(mask.data_ptr(), n, counts.data_ptr(),
-                                    stream_of(mask)), "tile_counts")
-    return counts
+                         device=words.device)
+    check_launch(lib.mp_word_counts(words.data_ptr(), n, counts.data_ptr(),
+                                    stream_of(words)), "word_counts")
+    return counts, torch.cumsum(counts, 0, dtype=torch.int64)
 
 
-def _exclusive_starts(counts: torch.Tensor) -> torch.Tensor:
-    c = counts.to(torch.int64)
-    return torch.cumsum(c, dim=0) - c
-
-
-def pack_into(flat: torch.Tensor, mask: torch.Tensor, dst: torch.Tensor,
+def pack_into(flat: torch.Tensor, words: torch.Tensor, dst: torch.Tensor,
               *, tiled: bool) -> torch.Tensor:
-    """K2: write the critical values of ``flat`` (mask order) into ``dst``.
+    """K2: write the critical values of ``flat`` (mask order) into ``dst``;
+    ``words`` is the mask in ``np.packbits`` order, (ceil(N/8),) uint8.
 
-    ``tiled=False``: ``dst`` is the dense (total,) payload.  ``tiled=True``:
-    ``dst`` is the zero-filled (ceil(N/512)*512,) tiled buffer, tile ``i``'s
-    values at ``i*512``.  Returns the per-tile counts (int32)."""
+    ``tiled=False``: ``dst`` is the dense (total,) payload (a count pass,
+    its scan, then the move).  ``tiled=True``: ``dst`` is the zero-filled
+    (ceil(N/512)*512,) tiled buffer, tile ``i``'s values at ``i*512`` (the
+    move alone).  Returns the per-tile counts (int32)."""
     _require(flat, "pack")
-    _require(mask, "pack", (torch.bool, torch.uint8))
     _require(dst, "pack", (flat.dtype,))
-    if mask.shape[0] != flat.shape[0] or mask.device != flat.device \
-            or dst.device != flat.device:
-        raise ValueError("pack: flat/mask/dst disagree in length or device")
+    n = flat.shape[0]
+    words = _words(words, n, "pack")
+    if words.device != flat.device or dst.device != flat.device:
+        raise ValueError("pack: flat/words/dst on different devices")
     lib = load_library()
-    counts = _tile_counts(lib, mask)
     if tiled:
-        starts = torch.arange(counts.shape[0], dtype=torch.int64,
-                              device=flat.device) * BLOCK
+        counts = torch.empty(-(-n // BLOCK), dtype=torch.int32,
+                             device=flat.device)
+        ends = None
     else:
-        starts = _exclusive_starts(counts)
-    check_launch(lib.mp_pack(flat.data_ptr(), mask.data_ptr(),
-                             flat.shape[0], starts.data_ptr(),
-                             dst.data_ptr(), dst.shape[0],
-                             flat.element_size(), stream_of(flat)), "pack")
-    LAUNCHES["pack"] += 1
+        counts, ends = _counts_and_ends(lib, words, n)
+    if n:
+        check_launch(lib.mp_pack(
+            flat.data_ptr(), words.data_ptr(), n,
+            None if tiled else counts.data_ptr(),
+            None if tiled else ends.data_ptr(), dst.data_ptr(),
+            dst.shape[0], counts.data_ptr() if tiled else None,
+            flat.element_size(), stream_of(flat)), "pack")
+        LAUNCHES["pack"] += 1
     return counts
 
 
@@ -162,25 +179,27 @@ def _fill_words(fill: torch.Tensor):
             int.from_bytes(raw[8:], "little"))
 
 
-def mask_scatter(payload: torch.Tensor, mask: torch.Tensor,
+def mask_scatter(payload: torch.Tensor, words: torch.Tensor, n: int,
                  fill: torch.Tensor) -> torch.Tensor:
-    """K4: (N,) tensor with ``payload`` at the mask's critical positions (in
-    order) and ``fill`` (a 0-d tensor of the payload dtype) elsewhere."""
+    """K4: (n,) tensor with ``payload`` at the mask's critical positions (in
+    order) and ``fill`` (a 0-d tensor of the payload dtype) elsewhere;
+    ``words`` is the mask in ``np.packbits`` order, (ceil(n/8),) uint8."""
     _require(payload, "mask_scatter")
-    _require(mask, "mask_scatter", (torch.bool, torch.uint8))
-    if mask.device != payload.device or payload.shape[0] == 0:
+    words = _words(words, n, "mask_scatter")
+    if words.device != payload.device or payload.shape[0] == 0:
         raise ValueError("mask_scatter: needs a non-empty payload on the "
-                         "mask's device")
+                         "words' device")
     if fill.dtype != payload.dtype:
         raise TypeError("mask_scatter: fill dtype differs from the payload's")
-    lib = load_library()
-    n = mask.shape[0]
     out = torch.empty(n, dtype=payload.dtype, device=payload.device)
-    starts = _exclusive_starts(_tile_counts(lib, mask))
+    if n == 0:
+        return out
+    lib = load_library()
+    counts, ends = _counts_and_ends(lib, words, n)
     lo, hi = _fill_words(fill)
     check_launch(lib.mp_mask_scatter(payload.data_ptr(), payload.shape[0],
-                                     mask.data_ptr(), n, starts.data_ptr(),
-                                     lo, hi, out.data_ptr(),
+                                     words.data_ptr(), n, counts.data_ptr(),
+                                     ends.data_ptr(), lo, hi, out.data_ptr(),
                                      payload.element_size(),
                                      stream_of(payload)), "mask_scatter")
     LAUNCHES["mask_scatter"] += 1

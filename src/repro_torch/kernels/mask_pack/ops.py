@@ -2,17 +2,24 @@
 
 Device-resident checkpoint path (the save hot path):
 
-    payload, counts = pack_group(flats, masks, totals)   # K2, one payload
+    payload, counts = pack_group(flats, words, totals)   # K2, one payload
     payload_h = fetch(payload)                          # D2H: critical bytes
 
-``unpack`` (K5) is the inverse of the tiled ``pack`` (K2): the restart
-of the NPB programs rebuilds each leaf from its critical-only tiles.
+K2 (``pack``, ``pack_group``, ``pack_critical``) and K4 (``mask_scatter``)
+take the mask as ``np.packbits``-order words, (ceil(N/8),) uint8: what K1
+writes, what the scrutiny report keeps on the device and what a
+checkpoint's bitmap stores.  Nothing widens them to a byte mask on the
+card; ``mask_to_words`` packs a bool mask for callers that hold one.
 
-The restore direction mirrors it: ``mask_scatter`` (K4) moves only the
-critical payload H2D (plus the bit-packed mask, expanded on device by
-``expand_mask_bits``) and re-expands it with ``fill`` at uncritical
-positions.  ``delta_encode`` (K3) compares the current and base payloads
-as raw bytes per chunk on device and moves only changed chunks D2H.
+``unpack`` (K5) is the inverse of the tiled ``pack`` (K2): the restart
+of the NPB programs rebuilds each leaf from its critical-only tiles.  It
+takes a bool mask.
+
+The restore direction mirrors the save: ``mask_scatter`` (K4) moves only
+the critical payload and the mask's words H2D and re-expands the payload
+with ``fill`` at uncritical positions.  ``delta_encode`` (K3) compares
+the current and base payloads as raw bytes per chunk on device and moves
+only changed chunks D2H.
 ``threshold_bitpack`` (K1) turns scrutiny magnitudes into bit-packed
 masks on device.
 
@@ -33,7 +40,15 @@ import torch
 from repro_torch._tensors import to_host
 from repro_torch.kernels.mask_pack import kernel as K
 from repro_torch.kernels.mask_pack import ref
-from repro_torch.kernels.mask_pack.ref import BITPACK_BLOCK, BLOCK
+from repro_torch.kernels.mask_pack.ref import (BITPACK_BLOCK, BLOCK,
+                                               expand_mask_bits,
+                                               mask_to_words)
+
+__all__ = ["DELTA_CHUNK_BYTES", "as_bytes", "delta_encode",
+           "expand_mask_bits", "gather_payload", "mask_scatter",
+           "mask_to_words", "pack", "pack_critical", "pack_group",
+           "pack_to_payload", "payload_to_packed", "threshold_bitpack",
+           "unpack"]
 
 # Chunk granularity of the delta format, in bytes — a multiple of every
 # leaf itemsize so chunks never split an element.  The host encoder
@@ -60,19 +75,30 @@ def _check_block(block: int, expected: int, on_card: bool) -> None:
         raise ValueError(f"the CUDA kernel tiles by {expected}, not {block}")
 
 
-def pack(flat: torch.Tensor, mask: torch.Tensor, *, block: int = BLOCK):
-    """K2, tiled form.  flat: (N,) any dtype; mask: (N,) bool.  Returns
-    (packed ``(ceil(N/block), block)`` with a zero tail per tile, counts
+def _check_words(words: torch.Tensor, n: int, what: str) -> torch.Tensor:
+    words = words.reshape(-1)
+    if words.dtype != torch.uint8 or words.shape[0] != (n + 7) // 8:
+        raise ValueError(f"{what}: the mask goes in as np.packbits words, "
+                         f"({(n + 7) // 8},) uint8 for {n} elements, not "
+                         f"{tuple(words.shape)} {words.dtype}")
+    return words
+
+
+def pack(flat: torch.Tensor, words: torch.Tensor, *, block: int = BLOCK):
+    """K2, tiled form.  flat: (N,) any dtype; words: the mask,
+    ``np.packbits`` order, (ceil(N/8),) uint8.  Returns (packed
+    ``(ceil(N/block), block)`` with a zero tail per tile, counts
     ``(ceil(N/block),)`` int32)."""
     flat = flat.reshape(-1)
-    mask = mask.reshape(-1)
-    card = _on_card(flat, mask)
+    card = _on_card(flat, words)
+    words = _check_words(words, flat.shape[0], "pack")
     _check_block(block, BLOCK, card)
     if not card:
-        return ref.pack_blocks_ref(flat, mask, block)
+        return ref.pack_blocks_ref(
+            flat, ref.expand_mask_bits(words, n=flat.shape[0]), block)
     nb = -(-flat.shape[0] // block)
     packed = torch.zeros(nb * block, dtype=flat.dtype, device=flat.device)
-    counts = K.pack_into(flat.contiguous(), mask.contiguous(), packed,
+    counts = K.pack_into(flat.contiguous(), words.contiguous(), packed,
                          tiled=True)
     return packed.view(nb, block), counts
 
@@ -92,7 +118,8 @@ def unpack(packed: torch.Tensor, mask: torch.Tensor, *, n: int,
                          f"hold {n} elements in tiles of {block}")
     card = _on_card(packed, mask)
     _check_block(block, BLOCK, card)
-    fill_t = ref.fill_tensor(fill, packed.dtype, packed.device)
+    # the fill stays on the host: the kernel takes its bytes by value
+    fill_t = ref.fill_tensor(fill, packed.dtype, "cpu")
     if not card:
         return ref.unpack_blocks_ref(packed, mask, fill_t)
     if n == 0:
@@ -107,80 +134,84 @@ def gather_payload(packed: torch.Tensor, counts: torch.Tensor, *,
     return ref.gather_payload_ref(packed, counts, total)
 
 
-def pack_group(flats: Sequence[torch.Tensor], masks: Sequence[torch.Tensor],
+def pack_group(flats: Sequence[torch.Tensor], words: Sequence[torch.Tensor],
                totals: Sequence[int], *, block: int = BLOCK):
     """Batched pack for the pipelined save engine: compacts every leaf of a
     same-dtype group into **one** dense payload (leaf order — slice with
     running ``totals`` offsets) plus the concatenated per-tile counts.
 
-    ``totals`` are the per-leaf critical counts from the criticality
-    report, so the payload is sized without any counts D2H.  On the card
-    each leaf is two launches (tile counts, then K2 writing straight into
-    its slice of the payload)."""
+    ``words`` are the leaves' masks as ``np.packbits`` words (the
+    scrutiny report's resident words); ``totals`` are the per-leaf
+    critical counts from the report, so the payload is sized without any
+    counts D2H.  On the card each leaf is K2's count pass, its scan and
+    K2's move, writing straight into the leaf's slice of the payload."""
     totals = tuple(int(t) for t in totals)
-    if len(flats) != len(masks) or len(flats) != len(totals):
-        raise ValueError("pack_group: flats/masks/totals length mismatch")
+    if len(flats) != len(words) or len(flats) != len(totals):
+        raise ValueError("pack_group: flats/words/totals length mismatch")
     if not flats:
         return (torch.zeros(0, dtype=torch.float32),
                 torch.zeros(0, dtype=torch.int32))
     dtype, device = flats[0].dtype, flats[0].device
     payload = torch.empty(sum(totals), dtype=dtype, device=device)
     counts, lo = [], 0
-    for f, m, t in zip(flats, masks, totals):
+    for f, w, t in zip(flats, words, totals):
         f = f.reshape(-1)
-        m = m.reshape(-1)
         if f.dtype != dtype:
             raise TypeError("pack_group: leaves of one group share a dtype")
-        card = _on_card(f, m, payload)
+        card = _on_card(f, w, payload)
+        w = _check_words(w, f.shape[0], "pack_group")
         _check_block(block, BLOCK, card)
         dst = payload[lo:lo + t]
         if card:
-            counts.append(K.pack_into(f.contiguous(), m.contiguous(), dst,
+            counts.append(K.pack_into(f.contiguous(), w.contiguous(), dst,
                                       tiled=False))
         else:
-            p, c = ref.pack_payload_ref(f, m, t, block)
+            p, c = ref.pack_payload_ref(
+                f, ref.expand_mask_bits(w, n=f.shape[0]), t, block)
             dst.copy_(p)
             counts.append(c)
         lo += t
     return payload, torch.cat(counts)
 
 
-def pack_critical(flat: torch.Tensor, mask: torch.Tensor, *,
+def pack_critical(flat: torch.Tensor, words: torch.Tensor, *,
                   block: int = BLOCK):
-    """Device-resident save path for one flat leaf.
+    """Device-resident save path for one flat leaf (``words``: its mask,
+    ``np.packbits`` order).
 
     Returns ``(payload, counts, d2h_bytes)``: ``payload`` a host numpy array
     of exactly the critical elements (leaf order; bf16 as uint16 bits),
     ``counts`` the per-tile critical counts, ``d2h_bytes`` what crossed
     device→host (payload + counts; the full leaf never moves)."""
-    packed, counts = pack(flat, mask, block=block)
+    packed, counts = pack(flat, words, block=block)
     counts_h = counts.cpu().numpy()                  # D2H: 4 B / tile
     total = int(counts_h.sum())
     payload_h = to_host(gather_payload(packed, counts, total=total))
     return payload_h, counts_h, payload_h.nbytes + counts_h.nbytes
 
 
-def mask_scatter(payload: torch.Tensor, mask: torch.Tensor, *, n: int,
+def mask_scatter(payload: torch.Tensor, words: torch.Tensor, *, n: int,
                  block: int = BLOCK, fill=0.0) -> torch.Tensor:
-    """K4, the device restore expand: dense critical ``payload`` + (n,)
-    bool ``mask`` → (n,) tensor with ``fill`` (cast to the payload dtype)
-    at uncritical positions.  Per-tile starts are derived from the mask on
-    the payload's device, so the only H2D inputs are the payload and the
-    (bit-packable) mask."""
+    """K4, the device restore expand: dense critical ``payload`` + the
+    mask's ``np.packbits`` words, (ceil(n/8),) uint8 → (n,) tensor with
+    ``fill`` (cast to the payload dtype) at uncritical positions.  The
+    tile starts are counted from the words on the payload's device, so
+    the only H2D inputs are the payload and 1 bit per element."""
     payload = payload.reshape(-1)
-    mask = mask.reshape(-1)
-    if mask.shape[0] != n:
-        raise ValueError(f"mask_scatter: mask has {mask.shape[0]} elements, "
-                         f"n={n}")
-    card = _on_card(payload, mask)
+    card = _on_card(payload, words)
+    words = _check_words(words, n, "mask_scatter")
     _check_block(block, BLOCK, card)
-    fill_t = ref.fill_tensor(fill, payload.dtype, payload.device)
+    # the fill stays on the host: the kernel takes its bytes by value, and
+    # reading them from the card would wait for the stream
+    fill_t = ref.fill_tensor(fill, payload.dtype, "cpu")
     if payload.shape[0] == 0:
         return torch.empty(n, dtype=payload.dtype,
                            device=payload.device).fill_(fill_t)
     if not card:
-        return ref.mask_scatter_ref(payload, mask, fill_t, block)
-    return K.mask_scatter(payload.contiguous(), mask.contiguous(), fill_t)
+        return ref.mask_scatter_ref(
+            payload, ref.expand_mask_bits(words, n=n), fill_t, block)
+    return K.mask_scatter(payload.contiguous(), words.contiguous(), n,
+                          fill_t)
 
 
 def threshold_bitpack(mag: torch.Tensor, tol=0.0, *,
@@ -198,14 +229,6 @@ def threshold_bitpack(mag: torch.Tensor, tol=0.0, *,
     if not card:
         return ref.bitpack_ref(mag, tol, block)
     return K.bitpack(mag.contiguous(), tol)
-
-
-def expand_mask_bits(bits: torch.Tensor, *, n: int) -> torch.Tensor:
-    """``np.packbits``-order uint8 words → (n,) bool mask on the words'
-    device (the mask costs 1 bit/element over PCIe instead of 1 byte)."""
-    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=bits.device)
-    x = (bits.reshape(-1, 1) >> shifts) & 1
-    return x.reshape(-1)[:n].to(torch.bool)
 
 
 # --------------------------------------------------------------------------

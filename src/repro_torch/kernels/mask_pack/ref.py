@@ -10,6 +10,8 @@ and for non-finite values.
 Format contract (shared with the reference package): arrays are processed
 in fixed ``BLOCK``-element tiles; each tile is left-compacted (critical
 elements first, in order) and the per-tile critical count is returned.
+K2 and K4 take the mask as ``np.packbits``-order words: their plain
+versions are the bool-mask ones below after :func:`expand_mask_bits`.
 """
 
 from __future__ import annotations
@@ -37,6 +39,29 @@ def bitpack_ref(mag: torch.Tensor, tol, block: int = BITPACK_BLOCK):
     words = (padded.view(-1, 8) * w).sum(dim=1).to(torch.uint8)
     counts = padded.view(nb, block).sum(dim=1).to(torch.int32)
     return words[:(n + 7) // 8], counts
+
+
+def expand_mask_bits(bits: torch.Tensor, *, n: int) -> torch.Tensor:
+    """``np.packbits``-order uint8 words → (n,) bool mask on the words'
+    device; bits past ``n`` in the last byte are dropped."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=bits.device)
+    x = (bits.reshape(-1, 1) >> shifts) & 1
+    return x.reshape(-1)[:n].to(torch.bool)
+
+
+def mask_to_words(mask: torch.Tensor) -> torch.Tensor:
+    """(N,) bool mask → its ``np.packbits``-order words, (ceil(N/8),) uint8
+    on the mask's device, tail bits 0: the inverse of
+    :func:`expand_mask_bits`."""
+    mask = mask.reshape(-1)
+    n = mask.shape[0]
+    m = torch.zeros(-(-n // 8) * 8, dtype=torch.uint8, device=mask.device)
+    m[:n] = mask
+    m = m.view(-1, 8)
+    words = m[:, 0] << 7
+    for j in range(1, 8):
+        words |= m[:, j] << (7 - j)
+    return words
 
 
 def tile_counts_ref(mask: torch.Tensor, block: int = BLOCK) -> torch.Tensor:

@@ -93,11 +93,16 @@ def rglru_train(cfg, p, x: torch.Tensor) -> torch.Tensor:
 def rglru_prefill(cfg, p, x: torch.Tensor):
     """Block output and the decode state at T from one scan: the
     reference's prefill scans twice (``model.py:538-541``), once inside
-    ``rglru_train`` and once more for the last hidden state."""
+    ``rglru_train`` and once more for the last hidden state.  A prompt
+    shorter than the conv history gets zero rows in front, the history
+    ``_causal_conv`` pads with, so its state decodes (the reference keeps
+    T rows there and its next decode step fails)."""
     dt = dtype_of(cfg.dtype)
     h = _rglru_hidden(cfg, p, x)
     u = x @ p["w_in"].to(x.dtype)
-    state = {"h": h[:, -1].float(), "conv": u[:, -(_CONV_W - 1):].to(dt)}
+    conv = u[:, -(_CONV_W - 1):]
+    conv = F.pad(conv, (0, 0, _CONV_W - 1 - conv.shape[1], 0))
+    state = {"h": h[:, -1].float(), "conv": conv.to(dt)}
     return _rglru_out(p, x, h), state
 
 

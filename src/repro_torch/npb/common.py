@@ -92,9 +92,9 @@ def verify_restart(bench: Benchmark, report: CriticalityReport,
         flat = leaf.reshape(-1)
         n = flat.shape[0]
         if corrupt is None:
-            mask = rep.device_mask(leaf.device)
-            packed, _ = mask_ops.pack(flat, mask)
-            flat = mask_ops.unpack(packed, mask, n=n, fill=0)
+            packed, _ = mask_ops.pack(flat, rep.device_words(leaf.device))
+            flat = mask_ops.unpack(packed, rep.device_mask(leaf.device), n=n,
+                                   fill=0)
         elif corrupt == "uncritical":
             garbage = rng.uniform(-1e6, 1e6, size=n)
             if leaf.is_complex():

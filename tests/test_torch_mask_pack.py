@@ -1,9 +1,11 @@
-"""The port's mask_pack ops (K1-K4) on the CPU against the reference.
+"""The port's mask_pack ops (K1-K5) on the CPU against the reference.
 
 On the CPU every op runs its kernel's plain version; the same inputs, made
 by numpy from a seed, go through ``repro.kernels.mask_pack.ops`` with
 ``use_kernel=False`` and, for finite f32 at a few tiles, through the raw
-Pallas kernels in interpret mode.  Equality is on bytes.  The CUDA kernels
+Pallas kernels in interpret mode.  Equality is on bytes.  The port's K2
+and K4 take the mask as ``np.packbits`` words where the reference takes a
+bool mask; ``_mask`` makes both from one numpy mask.  The CUDA kernels
 themselves are held against the same plain versions on the card by
 ``chip_smoke.py`` (and by ``test_torch_rules.py``'s ``gpu`` case).
 """
@@ -58,6 +60,11 @@ def _mask(n, frac, seed):
     return m, jnp.asarray(m), torch.from_numpy(m)
 
 
+def _words(m):
+    """The port's form of a numpy bool mask: its ``np.packbits`` words."""
+    return torch.from_numpy(np.packbits(m))
+
+
 def _b(x) -> bytes:
     if isinstance(x, torch.Tensor):
         return to_host(x).tobytes()
@@ -72,20 +79,21 @@ def test_pack_scatter_match_reference(dtype, frac, n):
     m, jm, tm = _mask(n, frac, seed=n + 1)
     total = int(m.sum())
     p_r, c_r = R.pack(j, jm, use_kernel=False)
-    p_t, c_t = T.pack(t, tm)
+    p_t, c_t = T.pack(t, _words(m))
     assert _b(p_t) == _b(p_r) and _b(c_t) == _b(c_r)
     # the dense group payload (two leaves of one dtype)
     j2, t2 = _pair(n // 2 + 1, dtype, seed=n + 2)
     m2, jm2, tm2 = _mask(n // 2 + 1, frac, seed=n + 3)
     pay_r, cnt_r = R.pack_group([j, j2], [jm, jm2], [total, int(m2.sum())],
                                 use_kernel=False)
-    pay_t, cnt_t = T.pack_group([t, t2], [tm, tm2], [total, int(m2.sum())])
+    pay_t, cnt_t = T.pack_group([t, t2], [_words(m), _words(m2)],
+                                [total, int(m2.sum())])
     assert _b(pay_t) == _b(pay_r) and _b(cnt_t) == _b(cnt_r)
     # the restore expand, with a zero and a non-zero fill
     for fill in (0, 3):
         o_r = R.mask_scatter(pay_r[:total], jm, n=n, fill=fill,
                              use_kernel=False)
-        o_t = T.mask_scatter(pay_t[:total], tm, n=n, fill=fill)
+        o_t = T.mask_scatter(pay_t[:total], _words(m), n=n, fill=fill)
         assert _b(o_t) == _b(o_r), fill
 
 
@@ -96,7 +104,7 @@ def test_pack_critical_matches_reference(dtype, frac):
     j, t = _pair(n, dtype, seed=11)
     m, _, tm = _mask(n, frac, seed=12)
     h_r, hc_r, d_r = R.pack_critical(j, m, use_kernel=False)
-    h_t, hc_t, d_t = T.pack_critical(t, tm)
+    h_t, hc_t, d_t = T.pack_critical(t, _words(m))
     assert h_t.tobytes() == h_r.tobytes() and d_t == d_r
     assert hc_t.tobytes() == hc_r.tobytes()
 
@@ -155,10 +163,10 @@ def test_uncritical_nonfinite_values(dtype, value):
     j = jnp.asarray(vals, getattr(jnp, dtype))
     t = state_from_numpy({"x": np.asarray(j)}, "cpu")["x"]
     p_r, c_r = R.pack(j, jnp.asarray(m), use_kernel=False)
-    p_t, c_t = T.pack(t, torch.from_numpy(m))
+    p_t, c_t = T.pack(t, _words(m))
     assert _b(p_t) == _b(p_r) and _b(c_t) == _b(c_r)
     total = int(m.sum())
-    pay_t, _ = T.pack_group([t], [torch.from_numpy(m)], [total])
+    pay_t, _ = T.pack_group([t], [_words(m)], [total])
     assert not torch.isnan(pay_t.float()).any()
     # the restore of a payload that itself holds non-finite values
     crit = np.asarray(j)[m].copy()
@@ -166,7 +174,7 @@ def test_uncritical_nonfinite_values(dtype, value):
     o_r = R.mask_scatter(jnp.asarray(crit), jnp.asarray(m), n=n, fill=0,
                          use_kernel=False)
     o_t = T.mask_scatter(state_from_numpy({"p": crit}, "cpu")["p"],
-                         torch.from_numpy(m), n=n, fill=0)
+                         _words(m), n=n, fill=0)
     assert _b(o_t) == _b(o_r)
 
 
@@ -191,10 +199,10 @@ def test_pallas_kernels_interpret_match_port(frac):
     p_k, pc_k = RK.pack_blocks_kernel(jnp.asarray(vals),
                                       jnp.asarray(m.astype(np.int8)),
                                       interpret=True)
-    p_t, pc_t = T.pack(tv, tm)
+    p_t, pc_t = T.pack(tv, _words(m))
     assert _b(p_t) == _b(p_k) and _b(pc_t) == _b(pc_k)
     # K4: payload + per-tile starts + mask → restored positions
-    pay_t, _ = T.pack_group([tv], [tm], [int(m.sum())])
+    pay_t, _ = T.pack_group([tv], [_words(m)], [int(m.sum())])
     total = int(m.sum())
     npb = total // 512 + 2
     pad = np.zeros(npb * 512, np.float32)
@@ -205,7 +213,7 @@ def test_pallas_kernels_interpret_match_port(frac):
                                    jnp.asarray(starts.astype(np.int32)),
                                    jnp.asarray(m.astype(np.int8)), fill=2.0,
                                    interpret=True)
-    o_t = T.mask_scatter(pay_t, tm, n=n, fill=2.0)
+    o_t = T.mask_scatter(pay_t, _words(m), n=n, fill=2.0)
     assert _b(o_t) == _b(o_k)
     # K3: chunk flags over the payloads' bytes
     c8 = np.frombuffer(vals.tobytes(), np.uint8).copy()
@@ -226,7 +234,7 @@ def test_block_other_than_kernel_tile_is_cpu_only():
     j, t = _pair(n, "float32", seed=1)
     m, jm, tm = _mask(n, 0.5, seed=2)
     p_r, c_r = R.pack(j, jm, block=128, use_kernel=False)
-    p_t, c_t = T.pack(t, tm, block=128)
+    p_t, c_t = T.pack(t, _words(m), block=128)
     assert _b(p_t) == _b(p_r) and _b(c_t) == _b(c_r)
 
 
@@ -239,10 +247,11 @@ def test_negative_zero_keeps_its_bytes():
     x[5] = -0.0
     m = torch.zeros(1024, dtype=torch.bool)
     m[:300] = True
-    p, _ = T.pack(x, m)
-    pay, _ = T.pack_group([x], [m], [300])
+    w = T.mask_to_words(m)
+    p, _ = T.pack(x, w)
+    pay, _ = T.pack_group([x], [w], [300])
     assert torch.signbit(p[0, 5]) and torch.signbit(pay[5])
-    assert torch.signbit(T.mask_scatter(pay, m, n=1024)[5])
+    assert torch.signbit(T.mask_scatter(pay, w, n=1024)[5])
 
 
 @pytest.mark.parametrize("frac", DENSITIES)
@@ -251,12 +260,149 @@ def test_host_payload_helpers_match_reference(frac):
     j, t = _pair(n, "float32", seed=21)
     m, jm, tm = _mask(n, frac, seed=22)
     packed, counts = R.pack(j, jm, use_kernel=False)
-    packed_t, counts_t = T.pack(t, tm)
+    packed_t, counts_t = T.pack(t, _words(m))
     pay_r = R.pack_to_payload(np.asarray(packed), np.asarray(counts))
     pay_t = T.pack_to_payload(to_host(packed_t), to_host(counts_t))
     assert pay_t.tobytes() == pay_r.tobytes()
     assert T.payload_to_packed(pay_t, to_host(counts_t), 512).tobytes() == \
         R.payload_to_packed(pay_r, np.asarray(counts), 512).tobytes()
+
+
+# --------------------------------------------------------------------------
+# the mask as np.packbits words: what K2 and K4 read
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("frac", DENSITIES)
+@pytest.mark.parametrize("n", [1, 7, 8, 513, 4099])
+def test_mask_to_words_inverts_expand_mask_bits(n, frac):
+    m, jm, tm = _mask(n, frac, seed=n + 41)
+    w = T.mask_to_words(tm)
+    assert w.dtype == torch.uint8 and _b(w) == np.packbits(m).tobytes()
+    assert torch.equal(T.expand_mask_bits(w, n=n), tm)
+    assert torch.equal(T.mask_to_words(T.expand_mask_bits(w, n=n)), w)
+    assert _b(T.expand_mask_bits(w, n=n)) == \
+        _b(R.expand_mask_bits(jnp.asarray(np.packbits(m)), n=n))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "int32"])
+@pytest.mark.parametrize("n", [1, 7, 513, 4099])
+def test_set_tail_bits_change_nothing(dtype, n):
+    """Bits past N in the last byte of the words are no element's: set,
+    they change no count, payload or restored value (the kernels mask
+    them off; the plain versions drop them)."""
+    j, t = _pair(n, dtype, seed=n + 51)
+    m, jm, _ = _mask(n, 0.5, seed=n + 52)
+    m[0] = True                       # a payload for the restore
+    jm = jnp.asarray(m)
+    total = int(m.sum())
+    w = _words(m)
+    planted = w.clone()
+    planted[-1] |= (1 << (8 - n % 8)) - 1
+    assert not torch.equal(planted, w)
+    p_r, c_r = R.pack(j, jm, use_kernel=False)
+    pay_r, _ = R.pack_group([j], [jm], [total], use_kernel=False)
+    o_r = R.mask_scatter(pay_r, jm, n=n, fill=3, use_kernel=False)
+    for words in (w, planted):
+        p_t, c_t = T.pack(t, words)
+        pay_t, cg_t = T.pack_group([t], [words], [total])
+        assert _b(p_t) == _b(p_r) and _b(c_t) == _b(c_r) == _b(cg_t)
+        assert _b(pay_t) == _b(pay_r)
+        assert _b(T.mask_scatter(pay_t, words, n=n, fill=3)) == _b(o_r)
+
+
+def test_ops_take_words_not_a_bool_mask():
+    x = torch.ones(20)
+    m = torch.ones(20, dtype=torch.bool)
+    for call in (lambda: T.pack(x, m),
+                 lambda: T.pack_group([x], [m], [20]),
+                 lambda: T.mask_scatter(x, m, n=20),
+                 lambda: T.pack(x, T.mask_to_words(m)[:2])):
+        with pytest.raises(ValueError, match="np.packbits words"):
+            call()
+
+
+def _stand_in_kernels(monkeypatch, calls):
+    """The card's route on CPU tensors: ``ops`` takes its kernel branch and
+    the kernels are stand-ins that check they got the words, unpack them
+    with numpy and run the bool-mask plain versions."""
+    from repro_torch.kernels.mask_pack import kernel as K
+    from repro_torch.kernels.mask_pack import ref
+
+    def bits(words, n):
+        assert words.dtype == torch.uint8 and words.shape == ((n + 7) // 8,)
+        return torch.from_numpy(np.unpackbits(words.numpy(), count=n)
+                                .astype(bool))
+
+    def pack_into(flat, words, dst, *, tiled):
+        calls.append("pack")
+        m = bits(words, flat.shape[0])
+        if tiled:
+            p, c = ref.pack_blocks_ref(flat, m)
+            dst.copy_(p.reshape(-1))
+            return c
+        p, c = ref.pack_payload_ref(flat, m, dst.shape[0])
+        dst.copy_(p)
+        return c
+
+    def mask_scatter(payload, words, n, fill):
+        calls.append("mask_scatter")
+        return ref.mask_scatter_ref(payload, bits(words, n), fill)
+
+    monkeypatch.setattr(T, "_on_card", lambda *ts: True)
+    monkeypatch.setattr(K, "pack_into", pack_into)
+    monkeypatch.setattr(K, "mask_scatter", mask_scatter)
+    monkeypatch.setattr(ref, "expand_mask_bits", _widened)
+
+
+def _widened(*args, **kwargs):
+    raise AssertionError("a mask was widened to one byte per element")
+
+
+@pytest.mark.parametrize("route", ["plain", "kernel"])
+def test_save_and_device_restore_never_widen_the_mask(tmp_path, monkeypatch,
+                                                      route):
+    """The device save packs each leaf from the report's resident words
+    (``device_words``) and the device restore scatters under the stored
+    words (``scatter_sharded_payload``): neither calls
+    ``expand_mask_bits`` or builds a report's byte mask.  ``kernel`` runs
+    the ops' card branch with stand-in kernels."""
+    from repro_torch import CheckpointManager, Level, scrutinize
+    from repro_torch.core import criticality
+
+    rng = np.random.RandomState(61)
+    state = {"w": torch.from_numpy(rng.randn(3001).astype(np.float32)),
+             "h": torch.from_numpy(rng.randn(700).astype(np.float32))
+             .to(torch.bfloat16),
+             "step": torch.tensor(3, dtype=torch.int32)}
+    sel = torch.from_numpy(rng.rand(3001) < 0.3)
+    rep = scrutinize(lambda s: (s["w"] * sel).sum()
+                     + s["h"][:500].float().sum(), state, device="cpu")
+
+    def run(d):
+        with CheckpointManager([Level(str(d), keep_n=1)],
+                               scrutiny_fn=lambda s: rep, save_mode="device",
+                               restore_mode="device",
+                               pipeline_engine="device", device="cpu") as mgr:
+            mgr.save(1, state, block=True)
+            _, got = mgr.restore({k: torch.zeros_like(v)
+                                  for k, v in state.items()})
+            assert mgr.last_restore_stats["device_leaves"] == 2
+        return got
+
+    want = run(tmp_path / "before")
+    calls = []
+    if route == "kernel":
+        _stand_in_kernels(monkeypatch, calls)
+    monkeypatch.setattr(T, "expand_mask_bits", _widened)
+    monkeypatch.setattr(criticality.DeviceLeafReport, "device_mask",
+                        _widened)
+    monkeypatch.setattr(criticality.LeafReport, "device_mask", _widened)
+    got = run(tmp_path / "after")
+    for k in state:
+        assert _b(got[k]) == _b(want[k]), k
+    assert _b(got["w"]) == _b(torch.where(sel, state["w"], 0.0))
+    if route == "kernel":
+        assert calls == ["pack", "pack", "mask_scatter", "mask_scatter"]
 
 
 # --------------------------------------------------------------------------
@@ -304,7 +450,7 @@ def test_unpack_matches_reference(dtype, frac, n):
         assert _b(o_t) == _b(o_r), fill
     # and the round trip through the port's own tiled pack
     o_t = T.unpack(t, tm, n=n)
-    p_t, _ = T.pack(o_t, tm)
+    p_t, _ = T.pack(o_t, _words(m))
     assert _b(T.unpack(p_t, tm, n=n)) == _b(o_t)
 
 

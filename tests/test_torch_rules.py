@@ -150,12 +150,12 @@ def _fa_backward_call():
 
 @pytest.mark.parametrize("mod,call", [
     (K, lambda: K.bitpack(torch.ones(8), 0.0)),
-    (K, lambda: K.pack_into(torch.ones(8), torch.ones(8, dtype=torch.bool),
+    (K, lambda: K.pack_into(torch.ones(8), torch.ones(1, dtype=torch.uint8),
                             torch.zeros(8), tiled=True)),
     (K, lambda: K.delta_flags(torch.zeros(8, dtype=torch.uint8),
                               torch.zeros(8, dtype=torch.uint8), 2048)),
-    (K, lambda: K.mask_scatter(torch.ones(8), torch.ones(8, dtype=torch.bool),
-                               torch.tensor(0.0))),
+    (K, lambda: K.mask_scatter(torch.ones(8), torch.ones(1, dtype=torch.uint8),
+                               8, torch.tensor(0.0))),
     (K, lambda: K.unpack(torch.ones(512), torch.ones(8, dtype=torch.bool),
                          torch.tensor(0.0))),
     (FK, _fa_call),
@@ -175,8 +175,8 @@ def test_kernel_wrappers_refuse_host_tensors(mod, call):
 
 @pytest.mark.parametrize("call", [
     lambda t: ops.threshold_bitpack(t),
-    lambda t: ops.pack(t, torch.ones(8, dtype=torch.bool, device="meta")),
-    lambda t: ops.mask_scatter(t, torch.ones(8, dtype=torch.bool,
+    lambda t: ops.pack(t, torch.ones(1, dtype=torch.uint8, device="meta")),
+    lambda t: ops.mask_scatter(t, torch.ones(1, dtype=torch.uint8,
                                              device="meta"), n=8),
     lambda t: ops.delta_encode(t, t),
     lambda t: ops.unpack(t.reshape(1, 8), torch.ones(8, dtype=torch.bool,
@@ -191,7 +191,7 @@ def test_ops_raise_on_other_devices(call):
 
 def test_ops_refuse_mixed_devices():
     with pytest.raises(RuntimeError, match="not a mix"):
-        ops.pack(torch.ones(8), torch.ones(8, dtype=torch.bool,
+        ops.pack(torch.ones(8), torch.ones(1, dtype=torch.uint8,
                                            device="meta"))
 
 
@@ -212,10 +212,11 @@ def test_plain_versions_count_no_launches():
     x = torch.randn(3000)
     m = torch.rand(3000) < 0.3
     ops.threshold_bitpack(x.abs())
-    ops.pack_group([x], [m], [int(m.sum())])
-    ops.mask_scatter(x[m], m, n=3000)
+    w = ops.mask_to_words(m)
+    ops.pack_group([x], [w], [int(m.sum())])
+    ops.mask_scatter(x[m], w, n=3000)
     ops.delta_encode(x, x)
-    ops.unpack(ops.pack(x, m)[0], m, n=3000)
+    ops.unpack(ops.pack(x, w)[0], m, n=3000)
     q = x[:2400].reshape(1, 20, 4, 30)
     live = q.clone().requires_grad_()
     fa_ops.flash_attention(live, q[:, :, :2], q[:, :, :2], window=5,
@@ -280,12 +281,13 @@ def test_kernels_match_plain_versions_on_the_card(card, dtype):
     x = (torch.rand(n, generator=g, device=card) < 0.5 if dtype == torch.bool
          else (torch.randn(n, generator=g, device=card) * 100).to(dtype))
     total = int(m.sum())
-    pay, _ = ops.pack_group([x], [m], [total])
+    w = ops.mask_to_words(m)
+    pay, _ = ops.pack_group([x], [w], [total])
     assert _same_bytes(pay, ref.pack_payload_ref(x, m, total)[0])
-    p, c = ops.pack(x, m)
+    p, c = ops.pack(x, w)
     p_r, c_r = ref.pack_blocks_ref(x, m)
     assert _same_bytes(p, p_r) and _same_bytes(c, c_r)
-    assert _same_bytes(ops.mask_scatter(pay, m, n=n, fill=1),
+    assert _same_bytes(ops.mask_scatter(pay, w, n=n, fill=1),
                        ref.mask_scatter_ref(pay, m, 1))
     c8 = ops.as_bytes(x)
     b8 = c8.clone()
@@ -296,6 +298,55 @@ def test_kernels_match_plain_versions_on_the_card(card, dtype):
         w, wc = ops.threshold_bitpack(x.abs() * m)
         w_r, wc_r = ref.bitpack_ref(x.abs() * m, 0.0)
         assert _same_bytes(w, w_r) and _same_bytes(wc, wc_r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16,
+                                   torch.float32, torch.float64,
+                                   torch.complex128, torch.int32, torch.bool])
+@pytest.mark.parametrize("frac", [0.0, 0.03, 0.5, 1.0])
+@pytest.mark.parametrize("n", [1, 511, 513, 70001])
+def test_pack_and_scatter_from_words_on_the_card(card, dtype, frac, n):
+    """K2 (tiled and dense) and K4 read ``np.packbits`` words: bit for bit
+    against the plain versions, also with the tail bits set, with words at
+    an odd address and with the dense payload at an odd element offset of
+    its group."""
+    g = torch.Generator(device=card).manual_seed(n)
+    m = torch.rand(n, generator=g, device=card) < frac
+    if dtype == torch.bool:
+        x = torch.rand(n, generator=g, device=card) < 0.5
+    elif dtype == torch.int32:
+        x = torch.randint(-2 ** 30, 2 ** 30, (n,), generator=g, device=card,
+                          dtype=dtype)
+    else:
+        x = torch.randn(n, generator=g, device=card,
+                        dtype=torch.complex128 if dtype.is_complex
+                        else torch.float32).to(dtype)
+    total = int(m.sum())
+    w = ops.mask_to_words(m)
+    planted = w.clone()
+    planted[-1] |= (1 << (8 - n % 8)) - 1 if n % 8 else 0
+    odd = torch.empty(w.shape[0] + 1, dtype=torch.uint8, device=card)[1:]
+    odd.copy_(planted)
+    head = x[:3]
+    head_w = ops.mask_to_words(torch.ones_like(head, dtype=torch.bool))
+    p_r, c_r = ref.pack_blocks_ref(x, m)
+    pay_r = ref.pack_payload_ref(x, m, total)[0]
+    for words in (w, planted, odd):
+        before = K.LAUNCHES["pack"]
+        p, c = ops.pack(x, words)
+        assert _same_bytes(p, p_r) and _same_bytes(c, c_r)
+        pay, cg = ops.pack_group([head, x], [head_w, words],
+                                 [head.shape[0], total])
+        assert K.LAUNCHES["pack"] == before + 3
+        assert _same_bytes(pay[head.shape[0]:], pay_r)
+        assert _same_bytes(cg[-c_r.shape[0]:], c_r)
+        if total:
+            for fill in (0, 1):
+                assert _same_bytes(
+                    ops.mask_scatter(pay[head.shape[0]:], words, n=n,
+                                     fill=fill),
+                    ref.mask_scatter_ref(pay_r, m, fill))
 
 
 @pytest.mark.gpu

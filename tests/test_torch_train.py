@@ -361,6 +361,36 @@ def test_decode_matches_full_forward(name):
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("T", [1, 2])
+def test_short_recurrent_prefill_decodes(models, T):
+    """A prompt shorter than the RG-LRU's conv history (T < 3 rows): the
+    prefill pads its conv state in front with the zeros ``_causal_conv``
+    pads with, so the state has ``rglru_init_state``'s shape and decodes.
+    Prefill + decode equals the full forward at position T (1e-4, as
+    above); the prefill logits equal the reference's (1e-5), whose next
+    decode step fails on the same prompt (ROADMAP Queue 3)."""
+    rcfg, rparams, cfg, params = models("recurrentgemma-2b")
+    toks = _tokens((2, T + 1), cfg.vocab, seed=7 + T)
+    x, positions = model_mod._input_sequence(
+        cfg, params, {"tokens": torch.from_numpy(toks)})
+    x = model_mod._run_layers(cfg, params, x, positions)
+    want = model_mod.lm_head_logits(
+        cfg, params, model_mod.apply_norm(cfg, params["final_norm"], x))[:, T]
+    logits, cache = prefill(cfg, params,
+                            {"tokens": torch.from_numpy(toks[:, :T])}, 16)
+    r_logits, _ = jax.jit(lambda p, t: r_model.prefill(
+        rcfg, p, {"tokens": t}, 16))(rparams, jnp.asarray(toks[:, :T]))
+    _close(logits, r_logits, f"prefill logits T={T}", 1e-5)
+    zero = _named(init_cache(cfg, 2, 16, device="cpu"))
+    convs = {k: v for k, v in _named(cache).items() if k.endswith("/conv")}
+    assert convs and all(v.shape == zero[k].shape for k, v in convs.items())
+    assert all(v.shape[-2:] == rec.rglru_init_state(cfg, 2, device="cpu")
+               ["conv"].shape[-2:] for v in convs.values())
+    got, _ = decode_step(cfg, params, cache, torch.from_numpy(toks[:, T:]),
+                         torch.tensor(T, dtype=torch.int32))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4, rtol=0)
+
+
 def test_restart_equivalence(tmp_path):
     """Run 12 steps straight vs 6 + crash + restore + 6: identical losses
     (as ``tests/test_train_loop.py``, on the CPU)."""
