@@ -48,7 +48,8 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_ref, flash_attention_tiled, tiled_attention)
 from repro_torch.kernels.lru_scan import kernel as LK  # noqa: E402
 from repro_torch.kernels.lru_scan import ops as lru_ops  # noqa: E402
-from repro_torch.kernels.lru_scan.ref import lru_scan_ref  # noqa: E402
+from repro_torch.kernels.lru_scan.ref import (  # noqa: E402
+    BWD_CHUNK, lru_scan_backward_chunked_ref, lru_scan_ref)
 from repro_torch.kernels.mask_pack import kernel as K  # noqa: E402
 from repro_torch.kernels.mask_pack import ops, ref  # noqa: E402
 
@@ -273,6 +274,43 @@ def phase_kernels() -> int:
     return cases
 
 
+# K1's edges: N % 4, N % 32 and N % 1024 non-zero, one short of and one
+# past a 32-element word and a 1024-element tile, and a leaf of 2^20 + 5
+K1_SIZES = (1, 3, 31, 33, 1023, 1025, 4097, (1 << 20) + 5)
+
+
+def phase_bitpack_edges() -> int:
+    """K1 bit for bit against ``bitpack_ref`` at ragged sizes, f32 and f64,
+    with NaN and ±inf magnitudes, tol 0 and 0.5, on a fresh tensor and on
+    a view one element (4 or 8 bytes) past a 16-byte boundary, which takes
+    the kernel's unaligned variant."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(1235)
+    cases = 0
+    for n in K1_SIZES:
+        for dt in (torch.float32, torch.float64):
+            mag = torch.rand(n + 1, generator=gen, device=DEV, dtype=dt)
+            mag = torch.where(mag < 0.3, torch.zeros_like(mag), mag)
+            for v, i in ((float("nan"), 5), (float("inf"), 7),
+                         (float("-inf"), 11)):
+                mag[i % (n + 1)::i] = v
+            for skip in (0, 1):
+                m = mag[skip:skip + n]
+                check(m.data_ptr() % 16 == skip * m.element_size(),
+                      f"K1 edge n={n} {dt}: view at {m.data_ptr() % 16}")
+                for tol in (0.0, 0.5):
+                    w, c = ops.threshold_bitpack(m, tol)
+                    w_r, c_r = ref.bitpack_ref(m, tol)
+                    check(same_bytes(w, w_r) and same_bytes(c, c_r),
+                          f"K1 n={n} {dt} offset {skip} tol={tol}")
+                    cases += 1
+    torch.cuda.synchronize()
+    print(f"K1 edges: {cases} cases bit-identical to bitpack_ref (n "
+          f"{list(K1_SIZES)}, f32 and f64, NaN and ±inf, tol 0 and 0.5, "
+          f"aligned and one element past a 16-byte boundary)")
+    return cases
+
+
 # K6 cases: (B, T, H, K, D, Dv, window, causal, cap, dtype), T an int or
 # (Tq, Tk).  The first eight are tests/test_kernels.py:24-33; then ragged T
 # (causal and not), Dv != D, D = 256, and window + softcap in bf16 and f16;
@@ -379,42 +417,59 @@ def fa_plain_grads(q, k, v, do, **kw):
         return o.detach(), torch.autograd.grad(o, live, do)
 
 
-# K7 cases: T, R, h0 and dtype, B = 2 (T = 1024, R = 2560: the training
-# path's shape)
-LRU_CASES = [(t, r, h0, dt) for t in (1, 7, 256, 1000, 1024)
+# K7 cases: B, T, R, h0 and dtype.  B = 2 with T around the backward's
+# 8-step chunks and 128-step segments (T = 1024, R = 2560: the training
+# path's shape); then B = 1, T one short of and one past 32, and T = 4096.
+LRU_CASES = [(2, t, r, h0, dt) for t in (1, 7, 31, 33, 256, 1000, 1024)
              for r in (100, 2560)
              for h0 in (True, False)
-             for dt in (torch.float32, torch.bfloat16)]
+             for dt in (torch.float32, torch.bfloat16)] + [
+    (1, t, r, h0, dt) for t, r in ((31, 100), (33, 2560), (4096, 2560))
+    for h0 in (True, False) for dt in (torch.float32, torch.bfloat16)]
 
 
 def phase_lru_scan() -> int:
     """K7 forward and backward against the plain version and autograd's
-    gradient through it."""
+    gradient through it; the backward also against its CPU model's order
+    (``lru_scan_backward_chunked_ref`` at the kernel's chunk), and two
+    backward launches on the same inputs must give the same bytes."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(78)
-    worst = {}
-    for T, R, with_h0, dt in LRU_CASES:
-        a = torch.rand((2, T, R), generator=gen, device=DEV).to(dt)
-        b = torch.randn((2, T, R), generator=gen, device=DEV).to(dt)
-        h0 = (torch.randn((2, R), generator=gen, device=DEV).to(dt)
+    worst, model = {}, {}
+    for B, T, R, with_h0, dt in LRU_CASES:
+        a = torch.rand((B, T, R), generator=gen, device=DEV).to(dt)
+        b = torch.randn((B, T, R), generator=gen, device=DEV).to(dt)
+        h0 = (torch.randn((B, R), generator=gen, device=DEV).to(dt)
               if with_h0 else None)
-        dh = torch.randn((2, T, R), generator=gen, device=DEV).to(dt)
+        dh = torch.randn((B, T, R), generator=gen, device=DEV).to(dt)
         h = lru_ops.lru_scan(a, b, h0)
         grads = LK.lru_scan_backward(a, h, h0, dh)
+        again = LK.lru_scan_backward(a, h, h0, dh)
+        what = f"K7 B={B} T={T} R={R} h0={with_h0} {dt}"
+        check(all(x is None or same_bytes(x, y)
+                  for x, y in zip(grads, again)),
+              f"{what}: two backward launches on the same inputs differ")
         h_r, grads_r = lru_plain_grads(a, b, h0, dh)
+        chunked = lru_scan_backward_chunked_ref(a, h, h0, dh)
         tol = lru_tol(dt)
-        what = f"K7 T={T} R={R} h0={with_h0} {dt}"
         for tag, got, want in zip(("fwd", "da", "db", "dh0"),
                                   (h,) + tuple(grads), (h_r,) + grads_r):
             if want is not None:
                 worst[f"{dt} {tag}"] = max(worst.get(f"{dt} {tag}", 0.0),
                                            fa_err(got, want, tol,
                                                   f"{what} {tag}"))
+        for tag, got, want in zip(("da", "db", "dh0"), grads, chunked):
+            if want is not None:
+                model[f"{dt} {tag}"] = max(model.get(f"{dt} {tag}", 0.0),
+                                           fa_err(got, want, tol,
+                                                  f"{what} {tag} model"))
     torch.cuda.synchronize()
     print(f"K7: {len(LRU_CASES)} cases, forward and backward within "
-          f"tolerance of the plain version (f32 1e-5, bf16 2e-2); max |err| "
-          f"{json.dumps(worst)}; comparison launches "
-          f"{json.dumps(LK.LAUNCHES)}")
+          f"tolerance of the plain version (f32 1e-5, bf16 2e-2), each "
+          f"backward deterministic over two launches; max |err| "
+          f"{json.dumps(worst)}; backward against the chunked CPU model "
+          f"(chunk {BWD_CHUNK}) max |err| {json.dumps(model)}; comparison "
+          f"launches {json.dumps(LK.LAUNCHES)}")
     return len(LRU_CASES)
 
 
@@ -1302,7 +1357,7 @@ def phase_training(root: str):
     print(f"training: launches {json.dumps(launches)}; per train step "
           f"{json.dumps(per_step)}; mask kernels {json.dumps(mask_launches)}"
           f" (the saved leaves are all or none critical)")
-    return launches, per_step, kc.inputs
+    return launches, per_step, kc.inputs, mask_launches
 
 
 # ----------------------------------------------------------------------------
@@ -1332,7 +1387,9 @@ def phase_npb(root: str):
     the f64 accumulators of the float64 and complex128 leaves), Table II,
     the §IV-C restart (K2 tiled + K5) and both corruptions, a scrutinized
     save and a restore into fresh tensors (K2 dense, K4) that resumes and
-    verifies, and Table III.  → (launches over the phase, seconds)."""
+    verifies, and Table III.  → (launches over the phase, K5's inputs in
+    the restart: (leaf, tiled pack, mask, n) for each leaf of each
+    program, timed in phase 5)."""
     from repro_torch import CheckpointManager, Level
     from repro_torch.core.report import storage_table, summary_table
     from repro_torch.npb import ALL_BENCHMARKS, get_benchmark
@@ -1341,6 +1398,7 @@ def phase_npb(root: str):
 
     K.reset_launches()
     t0 = time.perf_counter()
+    k5_inputs = []
     for name in ALL_BENCHMARKS:
         bench = get_benchmark(name)          # the card, by default
         check(bench.device.type == "cuda", f"npb {name} is not on the card")
@@ -1359,6 +1417,12 @@ def phase_npb(root: str):
                   f"critical (the reference on the CPU: "
                   f"{REF_FT_Y_CRITICAL}); the 4096 lattice elements "
                   f"critical, the kx = 64 plane uncritical")
+        for leaf, v in _tree.flatten_with_names(state)[0]:
+            flat, m = v.reshape(-1), rep[leaf].device_mask()
+            # the tiled pack by the plain version: no launch counted here
+            k5_inputs.append((f"{name}({leaf})",
+                              ref.pack_blocks_ref(flat, m)[0], m,
+                              flat.numel()))
         ok, restart_s = synced(lambda: verify_restart(bench, rep))
         check(ok, f"npb {name}: the restart from critical elements failed")
         check(verify_restart(bench, rep, corrupt="uncritical"),
@@ -1404,7 +1468,7 @@ def phase_npb(root: str):
         check(launches[k] > 0, f"npb: {k} was never launched: {launches}")
     print(f"npb: eight programs in {seconds:.1f} s; launches "
           f"{json.dumps(launches)}")
-    return launches, seconds
+    return launches, k5_inputs
 
 
 # ----------------------------------------------------------------------------
@@ -1434,6 +1498,26 @@ def median_ms(fn) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def batched_ms(fn, k: int = 20) -> float:
+    """Median over REPS samples of the mean time of ``k`` calls issued back
+    to back.  After the first call the host issues the next while the card
+    runs this one, so a call that keeps the card busier than the host is
+    timed by the card alone; :func:`median_ms` times one call started on an
+    idle card, the host's issue time included."""
+    fn()
+    times = []
+    for _ in range(REPS):
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(k):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / k)
     return float(np.median(times))
 
 
@@ -1468,10 +1552,9 @@ def sdpa_call(q, k, v):
                                                       is_causal=True)
 
 
-def phase_timing(launches, main, serve_launches, fa_in,
-                 npb_launches) -> list:
-    # K5 runs on the NPB path (phase 8): its launches are counted there
-    launches = dict(launches, unpack=npb_launches["unpack"])
+def phase_timing(main, fa_in, k5_inputs) -> list:
+    """K1–K6 timed at the main path's and the prefill's shapes, K5 also at
+    the NPB restart's leaves; main() fills in each row's launches."""
     state, sel_w, rep = main["state"], main["sel_w"], main["rep"]
     w = state["w"]
     n = w.numel()
@@ -1483,7 +1566,7 @@ def phase_timing(launches, main, serve_launches, fa_in,
         k_out, p_out = k_fn(), p_fn()
         rows.append({
             "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name], "launches": None,
             "max_abs_err": max_abs_err(k_out, p_out),
             "ms": median_ms(k_fn), "plain_ms": median_ms(p_fn),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
@@ -1498,6 +1581,23 @@ def phase_timing(launches, main, serve_launches, fa_in,
         lambda: torch.cat([x.view(torch.uint8) for x in
                            ref.bitpack_ref(mag, 0.0)]),
         None, 4 * n + n // 8 + 4 * (n // 1024))
+    # K1 on an f64 leaf of the same bytes (the NPB accumulators are f64)
+    mag64 = mag[: n // 2].double()
+    n64 = mag64.numel()
+    w64, w64_r = ops.threshold_bitpack(mag64, 0.0), ref.bitpack_ref(mag64, 0.0)
+    check(all(same_bytes(x, y) for x, y in zip(w64, w64_r)),
+          "K1 f64 leaf differs from bitpack_ref")
+    b64 = 8 * n64 + n64 // 8 + 4 * (n64 // 1024)
+    print(f"time threshold_bitpack f64: {n64} elements, kernel "
+          f"{median_ms(lambda: ops.threshold_bitpack(mag64, 0.0)):.4f} ms "
+          f"(batched "
+          f"{batched_ms(lambda: ops.threshold_bitpack(mag64, 0.0)):.4f}), "
+          f"bound {b64 / HBM_BYTES_PER_S * 1e3:.4f} ms, plain "
+          f"{median_ms(lambda: ref.bitpack_ref(mag64, 0.0)):.4f} ms")
+    print(f"time threshold_bitpack f32: batched "
+          f"{batched_ms(lambda: ops.threshold_bitpack(mag, 0.0)):.4f} ms")
+    del mag64, w64, w64_r
+    torch.cuda.empty_cache()
     # K2 and K4 read the report's resident words (1 bit per element); the
     # byte mask sel_w, expanded already, is the old yardstick's input.
     words_w = rep["w"].device_words()
@@ -1560,6 +1660,27 @@ def phase_timing(launches, main, serve_launches, fa_in,
         lambda: ref.unpack_blocks_ref(packed, sel_w, 0.0), None, k5_bytes)
     del packed
     torch.cuda.empty_cache()
+    # K5 at the leaves of the NPB restart (phase 8), where it is launched
+    k5 = {"ms": 0.0, "batched": 0.0, "bound": 0.0, "plain": 0.0}
+    per_leaf = []
+    for leaf, p, m, n_leaf in k5_inputs:
+        out = ops.unpack(p, m, n=n_leaf, fill=0.0)
+        check(same_bytes(out, ref.unpack_blocks_ref(p, m, 0.0)),
+              f"K5 at {leaf} differs from its plain version")
+        crit = int(m.sum())
+        t = median_ms(lambda: ops.unpack(p, m, n=n_leaf, fill=0.0))
+        k5["ms"] += t
+        k5["batched"] += batched_ms(lambda: ops.unpack(p, m, n=n_leaf,
+                                                       fill=0.0))
+        k5["plain"] += median_ms(lambda: ref.unpack_blocks_ref(p, m, 0.0))
+        k5["bound"] += (n_leaf + p.element_size() * (crit + n_leaf)) \
+            / HBM_BYTES_PER_S * 1e3
+        per_leaf.append([leaf, n_leaf, str(p.dtype).replace("torch.", ""),
+                         round(t, 4)])
+    print(f"time unpack at the NPB restart's {len(k5_inputs)} leaves: "
+          f"kernel {k5['ms']:.4f} ms in all (batched {k5['batched']:.4f}), "
+          f"bound {k5['bound']:.4f} ms, plain {k5['plain']:.4f} ms; per "
+          f"leaf (n, dtype, ms) {json.dumps(per_leaf)}")
     # K6 at the serving prefill's shape, on layer 0's q/k/v of that run
     q, k, v, kw = fa_in["q"], fa_in["k"], fa_in["v"], fa_in["kw"]
     B, T, H, D = q.shape
@@ -1577,7 +1698,7 @@ def phase_timing(launches, main, serve_launches, fa_in,
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:78",
-        "launches": serve_launches["flash_attention"],
+        "launches": None,
         "max_abs_err": fa_err(k6, plain, fa_tol(q.dtype)),
         "ms": median_ms(lambda: fa_ops.flash_attention(q, k, v, **kw)),
         "plain_ms": median_ms(lambda: flash_attention_ref(q, k, v, **kw)),
@@ -1623,9 +1744,12 @@ def phase_timing_training(launches, per_step, inputs) -> list:
     # the backward rows name the TPU kernel whose function they
     # differentiate: the reference has no backward kernel for either
     HOST = "src/repro/kernels/lru_scan/kernel.py:49"
+    batched = {}     # K7: its time by batched_ms beside median_ms's
 
     def row(name, source, replaces, k_fn, p_fn, lib_fn, err, t_ops,
             t_bytes):
+        if name.startswith("lru_scan"):
+            batched[name] = batched_ms(k_fn)
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
@@ -1703,7 +1827,9 @@ def phase_timing_training(launches, per_step, inputs) -> list:
         print(f"time {r['name']}: kernel {r['ms']:.4f} ms{rate}, bound "
               f"{r['bound_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']}, launches {r['launches']} "
-              f"({per_step[r['name']]} per train step)")
+              f"({per_step[r['name']]} per train step)"
+              + (f"; batched {batched[r['name']]:.4f} ms"
+                 if r["name"] in batched else ""))
     return rows
 
 
@@ -1717,6 +1843,7 @@ def main() -> None:
     t0 = time.perf_counter()
     card = phase_card()
     phase_kernels()
+    phase_bitpack_edges()
     phase_flash_attention()
     phase_lru_scan()
     phase_flash_attention_backward()
@@ -1725,13 +1852,20 @@ def main() -> None:
         launches, main_state = phase_main_path(os.path.join(tmp, "main"))
         phase_bench_bytes(os.path.join(tmp, "bench"))
         serve_launches, fa_in = phase_serving(os.path.join(tmp, "serve"))
-        npb_launches, _ = phase_npb(os.path.join(tmp, "npb"))
-        rows = phase_timing(launches, main_state, serve_launches, fa_in,
-                            npb_launches)
-        del main_state, fa_in
-        train_launches, per_step, train_in = phase_training(
+        npb_launches, k5_inputs = phase_npb(os.path.join(tmp, "npb"))
+        rows = phase_timing(main_state, fa_in, k5_inputs)
+        del main_state, fa_in, k5_inputs
+        train_launches, per_step, train_in, train_mask = phase_training(
             os.path.join(tmp, "train"))
     rows += phase_timing_training(train_launches, per_step, train_in)
+    # every kernel's launches summed over the paths it runs on, each path
+    # counted from 0 just before it and read just after
+    paths = {"main": launches, "serving": serve_launches, "npb": npb_launches,
+             "training": dict(train_launches, **train_mask)}
+    for r in rows:
+        r["launches"] = sum(p.get(r["name"], 0) for p in paths.values())
+    print(f"launches by path: {json.dumps(paths)}; in all "
+          f"{json.dumps({r['name']: r['launches'] for r in rows})}")
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -15,23 +15,53 @@
 // f32 carry g:
 //   g_t = dh_t + a_{t+1} g_{t+1}     (g_T = 0)
 //   db_t = g_t,  da_t = g_t h_{t-1}  (h_{-1} = h0),  dh0 = a_0 g_0
-// in one pass, reading a, the forward's h and dh.  Neither kernel uses
-// atomics: every output element has one writer, so both are deterministic.
+// reading a, the forward's h and dh.  Neither kernel uses atomics: every
+// output element has one writer and every sum one order, so both are
+// deterministic.
 //
 // Bound: bytes.  The forward reads a and b and writes h (3 B T R elements
 // plus h0); the backward reads a, h and dh and writes da and db (5 B T R
 // plus h0 and dh0).  At the training slice's shape (B=2, T=1024, R=2560,
 // f32) that is 63 MB, 0.019 ms at 3.35 TB/s, and 105 MB, 0.031 ms.
 //
-// Design, simple and right first: one thread per (b, r) channel walks T
+// Forward, simple and right first: one thread per (b, r) channel walks T
 // with the carry in a register; neighbouring threads own neighbouring r, so
 // every load and store of a time step is coalesced along R.  The walk loads
-// kUnroll time steps of every input before it uses them, so that many loads
-// are in flight per thread.  It takes any T >= 1 and any R: no padding and
-// no T % 8 or R % 128 branch (the TPU's 256 x 128 tiles are VMEM blocking,
-// not semantics).  Its parallelism is B R threads, 5,120 at the training
-// shape, far below what the card can keep in flight; a chunked two-pass
-// scan over T is the later step.
+// kUnroll time steps of every input before it uses them.  It takes any
+// T >= 1 and any R: no padding and no T % 8 or R % 128 branch (the TPU's
+// 256 x 128 tiles are VMEM blocking, not semantics).  Its parallelism is
+// B R threads, 5,120 at the training shape, far below what the card keeps
+// in flight: latency-bound, and the backward's chunking is its next step.
+//
+// Backward, chunked over T: one thread per channel walking T in reverse
+// would be latency-bound the same way.  The reverse recurrence is linear in
+// its carry, so T is cut into chunks of kBwdSteps steps.  Written with
+// x_t = a_t g_t (the carry into step t - 1), a chunk [s, e) walked with a
+// zero carry gives c^ = a_s g^_s and Q = a_s ... a_{e-1} (the product of
+// its a), and its true carry out is
+//   x_s = c^ + Q x_e.
+// A block owns one batch row and a slab of 32 channels (one a lane, so a
+// warp's loads of a step are one coalesced row) and walks T in reverse in
+// segments of kBwdWarps chunks, one chunk a warp:
+//   1. each warp loads its chunk's a, dh and h_{t-1} into registers (all
+//      of them before any is used) and walks it with a zero carry: c^, Q
+//      into shared memory;
+//   2. warp 0 combines the chunks in order, from the last to the first,
+//      starting from the segment's carry (the previous segment's out, 0
+//      at T), and writes each chunk's carry in;
+//   3. each warp walks its chunk again from registers with its true carry
+//      and writes db and da.
+// Each input element is read once and each output written once: 5 B T R
+// elements, the bound.  Two barriers a segment; at the training shape 160
+// blocks of 512 threads, each with 96 B of loads in flight (f32): 7.9 MB.
+// Steps past T read as a = 1, dh = 0, which pass a carry through exactly.
+// Numerics: each step is x = a * g rounded, then g = dh + x rounded (no
+// fused multiply-add), which is what autograd through the plain version
+// does; the carries differ from a serial walk by one rounding per chunk
+// (fmaf(Q, x_e, c^)).  A zero carry stays an exact zero, so where dh is 0
+// from t onward, g, da and db are exact zeros there.  Q is the product of
+// kBwdSteps values of a: a in [0, 1], as the RG-LRU's gate makes it, keeps
+// it finite.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,42 +118,73 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+constexpr int kBwdWarps = 16;  // chunks a segment: one a warp
+constexpr int kBwdSteps = 8;   // time steps a chunk
+constexpr int kBwdThreads = 32 * kBwdWarps;
+constexpr int kBwdSegment = kBwdWarps * kBwdSteps;
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBwdThreads, 2)
     lru_backward_kernel(const T* __restrict__ a, const T* __restrict__ h,
                         const T* __restrict__ h0, const T* __restrict__ dh,
                         T* __restrict__ da, T* __restrict__ db,
                         T* __restrict__ dh0, int B, int Tn, int R) {
-  const int64_t ch = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (ch >= (int64_t)B * R) return;
-  const int bi = (int)(ch / R), r = (int)(ch - (int64_t)bi * R);
+  __shared__ float c_hat[kBwdWarps][32];  // a_s g^_s of each chunk
+  __shared__ float q_all[kBwdWarps][32];  // a_s ... a_{e-1}
+  __shared__ float c_in[kBwdWarps][32];   // x_e, the true carry in
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int slabs = (R + 31) / 32;
+  const int bi = blockIdx.x / slabs;
+  const int r = (blockIdx.x - bi * slabs) * 32 + lane;
+  const bool live = r < R;
   const int64_t base = (int64_t)bi * Tn * R + r;
-  const float h_init = h0 ? to_f32(h0[ch]) : 0.f;
-  float g = 0.f;       // g_{t+1}
-  float a_next = 0.f;  // a_{t+1}
-  // walk t = Tn-1 .. 0 in groups of kUnroll, loads of a group first
-  for (int t1 = Tn - 1; t1 >= 0; t1 -= kUnroll) {
-    float av[kUnroll], hp[kUnroll], dv[kUnroll];
+  const float h_init = live && h0 ? to_f32(h0[(int64_t)bi * R + r]) : 0.f;
+  float carry = 0.f;  // warp 0: x at the current segment's end (0 at T)
+  for (int seg = (Tn - 1) / kBwdSegment; seg >= 0; --seg) {
+    const int s = seg * kBwdSegment + warp * kBwdSteps;  // the warp's chunk
+    float av[kBwdSteps], dv[kBwdSteps], hp[kBwdSteps];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = t1 - u;
-      const bool in = t >= 0;
-      av[u] = in ? to_f32(a[base + (int64_t)t * R]) : 0.f;
+    for (int u = 0; u < kBwdSteps; ++u) {
+      const int t = s + u;
+      const bool in = live && t < Tn;
+      av[u] = in ? to_f32(a[base + (int64_t)t * R]) : 1.f;
       dv[u] = in ? to_f32(dh[base + (int64_t)t * R]) : 0.f;
-      hp[u] = t > 0 ? to_f32(h[base + (int64_t)(t - 1) * R]) : h_init;
+      hp[u] = in && t > 0 ? to_f32(h[base + (int64_t)(t - 1) * R]) : h_init;
     }
+    // 1. the chunk with a zero carry
+    float x = 0.f, q = 1.f;
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = t1 - u;
-      if (t >= 0) {
-        g = fmaf(a_next, g, dv[u]);
-        db[base + (int64_t)t * R] = from_f32<T>(g);
-        da[base + (int64_t)t * R] = from_f32<T>(g * hp[u]);
-        a_next = av[u];
+    for (int u = kBwdSteps - 1; u >= 0; --u) {
+      x = __fmul_rn(av[u], __fadd_rn(dv[u], x));
+      q = __fmul_rn(q, av[u]);
+    }
+    c_hat[warp][lane] = x;
+    q_all[warp][lane] = q;
+    __syncthreads();
+    // 2. the segment's chunks in order, last to first
+    if (warp == 0) {
+#pragma unroll
+      for (int w = kBwdWarps - 1; w >= 0; --w) {
+        c_in[w][lane] = carry;
+        carry = fmaf(q_all[w][lane], carry, c_hat[w][lane]);
       }
     }
+    __syncthreads();
+    // 3. the chunk again with its true carry
+    x = c_in[warp][lane];
+#pragma unroll
+    for (int u = kBwdSteps - 1; u >= 0; --u) {
+      const int t = s + u;
+      const float g = __fadd_rn(dv[u], x);
+      if (live && t < Tn) {
+        db[base + (int64_t)t * R] = from_f32<T>(g);
+        da[base + (int64_t)t * R] = from_f32<T>(__fmul_rn(g, hp[u]));
+      }
+      x = __fmul_rn(av[u], g);
+    }
   }
-  if (dh0) dh0[ch] = from_f32<T>(a_next * g);  // a_0 g_0
+  // carry = x_0 = a_0 g_0
+  if (warp == 0 && live && dh0) dh0[(int64_t)bi * R + r] = from_f32<T>(carry);
 }
 
 inline unsigned blocks_for(int B, int R) {
@@ -132,7 +193,8 @@ inline unsigned blocks_for(int B, int R) {
 
 inline bool bad_shape(int B, int Tn, int R) {
   return B < 1 || Tn < 1 || R < 1 ||
-         (int64_t)B * R > (int64_t)kThreads * 2147483647LL;
+         (int64_t)B * R > (int64_t)kThreads * 2147483647LL ||
+         (int64_t)B * ((R + 31) / 32) > 2147483647LL;
 }
 
 }  // namespace
@@ -170,17 +232,17 @@ int lru_backward(const void* a, const void* h, const void* h0, const void* dh,
                  int dtype, void* stream) {
   if (bad_shape(B, Tn, R)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = blocks_for(B, R);
+  const unsigned grid = (unsigned)((int64_t)B * ((R + 31) / 32));
   switch (dtype) {
     case 0:
-      lru_backward_kernel<float><<<grid, kThreads, 0, s>>>(
+      lru_backward_kernel<float><<<grid, kBwdThreads, 0, s>>>(
           static_cast<const float*>(a), static_cast<const float*>(h),
           static_cast<const float*>(h0), static_cast<const float*>(dh),
           static_cast<float*>(da), static_cast<float*>(db),
           static_cast<float*>(dh0), B, Tn, R);
       break;
     case 1:
-      lru_backward_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+      lru_backward_kernel<__nv_bfloat16><<<grid, kBwdThreads, 0, s>>>(
           static_cast<const __nv_bfloat16*>(a),
           static_cast<const __nv_bfloat16*>(h),
           static_cast<const __nv_bfloat16*>(h0),

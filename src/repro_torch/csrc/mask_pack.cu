@@ -28,39 +28,123 @@ constexpr int kBitpackTile = 1024;  // K1 tile (BITPACK_BLOCK)
 constexpr int kTile = 512;          // K2/K4 tile (BLOCK)
 constexpr int kDeltaThreads = 128;  // K3: 128 x 16 B = one 2048-byte chunk
 
+// Four packbits-order bytes, loaded as a little-endian word, in lane order:
+// bit l is element 32g + l, and back (it is its own inverse).  __brev
+// reverses the byte order and the bits within each byte, the byte permute
+// restores the byte order, so the pair reverses the bits within each byte.
+__device__ __forceinline__ uint32_t lane_order(uint32_t w) {
+  return __byte_perm(__brev(w), 0, 0x0123);
+}
+
 // ---------------------------------------------------------------------------
 // K1  threshold + bit-pack
 // Replaces kernels/mask_pack/kernel.py:bitpack_blocks_kernel (_bitpack_kernel).
-// Bound: bytes.  It reads 4 or 8 bytes per element and writes 1/8 byte, so
-// at 3.35 TB/s the read of the magnitudes is the whole cost.  Design: one
-// thread per element, coalesced loads; a warp ballot yields 32 mask bits
-// with lane 0 in the LSB, __brev + __byte_perm turn them into four
-// np.packbits-order bytes stored as one 32-bit word; the per-tile count is
-// __popc per warp summed by warp 0 from shared memory.  Bits past N are 0
-// (no -inf pad pass), and NaN is never > tol, so its bit is 0.
+// Bound: bytes.  It reads 4 or 8 bytes per element and writes 1/8 byte plus
+// 4 B per 1024 elements, so the read of the magnitudes is the whole cost:
+// 0.66 ms for 2^29 f32 at 3.35 TB/s.  To cover about 1 us of DRAM latency
+// at that rate the card must hold about 3.4 MB of loads in flight (Little's
+// law); one 4-byte load a thread, with every thread of the card resident,
+// holds 1.1 MB.
+// Design: one warp owns a 1024-element tile and walks the tiles grid-stride
+// (8 warps a block, no barrier, as many blocks as the card holds at once).
+// A tile is 8 chunks of 128 elements; in chunk j lane l holds elements
+// 128j + 4l .. 128j + 4l + 3, one 16-byte load (f32) or two (f64), so each
+// load instruction of the warp is 512 contiguous bytes, and all of a tile's
+// loads (128 B a lane in f32, 256 B in f64) are issued before any is used.
+// Bit mapping: chunk j gives four ballots, bit l of ballot c being element
+// 128j + 4l + c > tol.  Lane l writes word l of the tile, elements
+// 32l .. 32l + 31 (chunk j = l / 4, group g = l % 4, ballot lanes
+// 8g .. 8g + 7): it takes byte g of each of chunk j's four ballots and
+// interleaves them, bit 4i + c of the word = bit i of byte g of ballot c,
+// which puts element 32l + b at bit b (lane order); lane_order() turns that
+// into np.packbits order (element 8k the MSB of byte k), stored as one
+// 32-bit word, so a tile's 128 mask bytes are one coalesced store.  The
+// tile's count is the popcount of its 32 ballots, the same on every lane:
+// no shuffle and no shared memory.
+// Edges: the ragged last tile, and a magnitude pointer that is not 16-byte
+// aligned (ops.threshold_bitpack takes views, and no copy is made: the
+// whole launch then takes the unaligned variant), read the same elements
+// with 4- or 8-byte loads, guarded; an element past N reads as NaN.  NaN is
+// never > tol, so NaN's bit and the tail bits are 0.
 // ---------------------------------------------------------------------------
+constexpr int kBitpackWarps = 8;                      // tiles a block walks at once
+constexpr int kBitpackThreads = 32 * kBitpackWarps;
+constexpr int kBitpackChunks = kBitpackTile / 128;    // 4 elements a lane each
+
+// Bit i of an 8-bit x to bit 4i.
+__device__ __forceinline__ uint32_t spread4(uint32_t x) {
+  x = (x | (x << 12)) & 0x000F000Fu;
+  x = (x | (x << 6)) & 0x03030303u;
+  return (x | (x << 3)) & 0x11111111u;
+}
+
 template <typename T>
-__global__ void __launch_bounds__(kBitpackTile)
+__device__ __forceinline__ T quiet_nan();
+template <>
+__device__ __forceinline__ float quiet_nan<float>() {
+  return __int_as_float(0x7fc00000);
+}
+template <>
+__device__ __forceinline__ double quiet_nan<double>() {
+  return __longlong_as_double(0x7ff8000000000000LL);
+}
+
+// mag[e .. e + 3], e a multiple of 4 and mag 16-byte aligned: streaming
+// 16-byte loads (read once, so they need not stay in the caches).
+__device__ __forceinline__ void load_quad(const float* mag, long long e,
+                                          float (&v)[4]) {
+  const float4 q = __ldcs(reinterpret_cast<const float4*>(mag + e));
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+__device__ __forceinline__ void load_quad(const double* mag, long long e,
+                                          double (&v)[4]) {
+  const double2 p = __ldcs(reinterpret_cast<const double2*>(mag + e));
+  const double2 q = __ldcs(reinterpret_cast<const double2*>(mag + e + 2));
+  v[0] = p.x; v[1] = p.y; v[2] = q.x; v[3] = q.y;
+}
+
+template <typename T, bool kAligned>
+__global__ void __launch_bounds__(kBitpackThreads)
 bitpack_kernel(const T* __restrict__ mag, T tol, long long n,
                uint32_t* __restrict__ words, int32_t* __restrict__ counts) {
-  __shared__ int warp_count[kBitpackTile / 32];
-  const long long tile = blockIdx.x;
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long i = tile * kBitpackTile + threadIdx.x;
-  const bool bit = i < n && mag[i] > tol;
-  const unsigned ballot = __ballot_sync(0xffffffffu, bit);
-  const long long base = tile * kBitpackTile + warp * 32;
-  if (lane == 0) {
-    if (base < n) words[base >> 5] = __byte_perm(__brev(ballot), 0, 0x0123);
-    warp_count[warp] = __popc(ballot);
-  }
-  __syncthreads();
-  if (warp == 0) {
-    int c = warp_count[lane];
-    for (int off = 16; off > 0; off >>= 1)
-      c += __shfl_down_sync(0xffffffffu, c, off);
-    if (lane == 0) counts[tile] = c;
+  const long long tiles = (n + kBitpackTile - 1) / kBitpackTile;
+  const long long nwords = (n + 31) >> 5;
+  const long long stride = (long long)gridDim.x * kBitpackWarps;
+  for (long long tile = (long long)blockIdx.x * kBitpackWarps +
+                        (threadIdx.x >> 5);
+       tile < tiles; tile += stride) {
+    const long long e0 = tile * kBitpackTile + 4 * lane;
+    T v[kBitpackChunks][4];
+    if (kAligned && (tile + 1) * kBitpackTile <= n) {
+#pragma unroll
+      for (int j = 0; j < kBitpackChunks; ++j)
+        load_quad(mag, e0 + 128 * j, v[j]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kBitpackChunks; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const long long e = e0 + 128 * j + c;
+          v[j][c] = e < n ? mag[e] : quiet_nan<T>();
+        }
+    }
+    uint32_t mine[4] = {0u, 0u, 0u, 0u};  // chunk lane / 4's ballots
+    int count = 0;
+#pragma unroll
+    for (int j = 0; j < kBitpackChunks; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const uint32_t b = __ballot_sync(0xffffffffu, v[j][c] > tol);
+        count += __popc(b);
+        if (j == (lane >> 2)) mine[c] = b;
+      }
+    const int g = 8 * (lane & 3);
+    uint32_t bits = 0u;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) bits |= spread4((mine[c] >> g) & 0xffu) << c;
+    if (tile * 32 + lane < nwords) words[tile * 32 + lane] = lane_order(bits);
+    if (lane == 0) counts[tile] = count;
   }
 }
 
@@ -73,14 +157,6 @@ bitpack_kernel(const T* __restrict__ mag, T tol, long long n,
 constexpr int kGroups = kTile / 32;   // 32-element groups per tile
 constexpr int kCountThreads = 256;    // count pass: 16 B (128 elements) each
 constexpr int kMoveThreads = 256;     // move passes: one warp per tile
-
-// Four packbits-order bytes, loaded as a little-endian word, in lane order:
-// bit l is element 32g + l.  It undoes K1's store: __brev reverses the
-// byte order and the bits within each byte, the byte permute restores the
-// byte order, so the pair reverses the bits within each byte.
-__device__ __forceinline__ uint32_t lane_order(uint32_t w) {
-  return __byte_perm(__brev(w), 0, 0x0123);
-}
 
 // The four word bytes of elements [e0, e0 + 32), e0 a multiple of 32, as
 // loaded (packbits order).  A word inside the mask is one aligned 4-byte
@@ -417,20 +493,44 @@ inline unsigned grid_for(long long n, int tile) {
   return static_cast<unsigned>((n + tile - 1) / tile);
 }
 
-// Blocks for a move pass (one warp per tile, grid-stride): one per tile's
-// worth of warps, at most as many as the card holds at once.
+// Blocks for a grid-stride kernel with one warp per tile: one per
+// `threads / 32` tiles, at most as many as the card holds at once.
 template <typename Kernel>
-unsigned move_grid(Kernel kernel, long long n) {
-  const long long tiles = (n + kTile - 1) / kTile;
-  const long long want = (tiles + kMoveThreads / 32 - 1) / (kMoveThreads / 32);
+unsigned warp_grid(Kernel kernel, long long tiles, int threads) {
+  const long long want = (tiles + threads / 32 - 1) / (threads / 32);
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                kMoveThreads, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
   const long long most = (long long)(sms > 0 ? sms : 1) *
                          (per_sm > 0 ? per_sm : 1);
   return static_cast<unsigned>(want < most ? want : most);
+}
+
+// Blocks for a K2/K4 move pass (512-element tiles).
+template <typename Kernel>
+unsigned move_grid(Kernel kernel, long long n) {
+  return warp_grid(kernel, (n + kTile - 1) / kTile, kMoveThreads);
+}
+
+// K1 on the aligned or the unaligned variant (see its note).
+template <typename T>
+int launch_bitpack(const T* mag, T tol, long long n, uint32_t* words,
+                   int32_t* counts, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long tiles = (n + kBitpackTile - 1) / kBitpackTile;
+  if (reinterpret_cast<uintptr_t>(mag) % 16 == 0)
+    bitpack_kernel<T, true><<<warp_grid(bitpack_kernel<T, true>, tiles,
+                                        kBitpackThreads),
+                              kBitpackThreads, 0, s>>>(mag, tol, n, words,
+                                                       counts);
+  else
+    bitpack_kernel<T, false><<<warp_grid(bitpack_kernel<T, false>, tiles,
+                                         kBitpackThreads),
+                               kBitpackThreads, 0, s>>>(mag, tol, n, words,
+                                                        counts);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename W>
@@ -475,20 +575,12 @@ extern "C" {
 
 int mp_bitpack_f32(const float* mag, float tol, long long n, uint32_t* words,
                    int32_t* counts, void* stream) {
-  if (n > 0)
-    bitpack_kernel<float><<<grid_for(n, kBitpackTile), kBitpackTile, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        mag, tol, n, words, counts);
-  return static_cast<int>(cudaGetLastError());
+  return launch_bitpack<float>(mag, tol, n, words, counts, stream);
 }
 
 int mp_bitpack_f64(const double* mag, double tol, long long n,
                    uint32_t* words, int32_t* counts, void* stream) {
-  if (n > 0)
-    bitpack_kernel<double><<<grid_for(n, kBitpackTile), kBitpackTile, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        mag, tol, n, words, counts);
-  return static_cast<int>(cudaGetLastError());
+  return launch_bitpack<double>(mag, tol, n, words, counts, stream);
 }
 
 // K2/K4's count pass: ceil(n/512) int32 counts from the words.

@@ -6,11 +6,17 @@ the CUDA kernel against it on the card; its gradient is autograd's through
 the loop.  Unlike the reference's oracle it carries ``h`` in f32 for every
 input dtype, as the reference's kernel and entry point do
 (``lru_scan/kernel.py:35``), and writes each step in ``a``'s dtype.
+
+Beside it, :func:`lru_scan_backward_chunked_ref`: the backward in the
+order of K7's backward kernel (chunks walked with a zero carry, the
+carries combined from the last chunk to the first, each chunk walked again
+with its true carry), a CPU model of that order that nothing on the main
+path calls.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,3 +32,59 @@ def lru_scan_ref(a: torch.Tensor, b: torch.Tensor,
         h = a[:, t].float() * h + b[:, t].float()
         out.append(h.to(a.dtype))
     return torch.stack(out, dim=1)
+
+
+# Time steps per chunk in K7's backward kernel (csrc/lru_scan.cu kBwdSteps).
+BWD_CHUNK = 8
+
+
+def lru_scan_backward_chunked_ref(a: torch.Tensor, h: torch.Tensor,
+                                  h0: Optional[torch.Tensor],
+                                  dh: torch.Tensor, chunk: int = BWD_CHUNK
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             Optional[torch.Tensor]]:
+    """The backward of :func:`lru_scan_ref` in chunks of ``chunk`` steps:
+    (da, db, dh0) from a, the forward's h, h0 (or None) and dh, in a's
+    dtype with an f32 carry; dh0 None without h0.
+
+    With x_t = a_t g_t, the carry into step t - 1 (g_t = dh_t + x_{t+1},
+    x_T = 0), a chunk [s, e) walked with x_e = 0 gives c^ = x_s and
+    Q = a_s ... a_{e-1}; its true carry out is x_s = c^ + Q x_e.  Chunks
+    start at multiples of ``chunk``; steps past T act as a = 1, dh = 0,
+    which pass a carry through exactly.  Each step rounds x = a g and
+    g = dh + x separately, as autograd through the plain version does."""
+    B, T, R = a.shape
+    n = -(-T // chunk)
+    pad = n * chunk - T
+    f = torch.float32
+
+    def chunks(t, fill):
+        t = torch.nn.functional.pad(t.to(f), (0, 0, 0, pad), value=fill)
+        return t.view(B, n, chunk, R)
+
+    h_init = (torch.zeros((B, 1, R), dtype=f, device=a.device)
+              if h0 is None else h0.to(f)[:, None])
+    av, dv = chunks(a, 1.0), chunks(dh, 0.0)
+    hp = chunks(torch.cat([h_init, h[:, :-1].to(f)], dim=1), 0.0)
+    # 1. every chunk with a zero carry
+    x = torch.zeros((B, n, R), dtype=f, device=a.device)
+    q = torch.ones_like(x)
+    for u in range(chunk - 1, -1, -1):
+        x = av[:, :, u] * (dv[:, :, u] + x)
+        q = q * av[:, :, u]
+    # 2. the carries, from the last chunk to the first
+    carry = torch.zeros((B, R), dtype=f, device=a.device)
+    c_in = torch.empty_like(x)
+    for k in range(n - 1, -1, -1):
+        c_in[:, k] = carry
+        carry = x[:, k] + q[:, k] * carry
+    # 3. every chunk again with its true carry
+    x = c_in
+    da, db = torch.empty_like(av), torch.empty_like(av)
+    for u in range(chunk - 1, -1, -1):
+        g = dv[:, :, u] + x
+        db[:, :, u] = g
+        da[:, :, u] = g * hp[:, :, u]
+        x = av[:, :, u] * g
+    da, db = (t.view(B, n * chunk, R)[:, :T].to(a.dtype) for t in (da, db))
+    return da, db, None if h0 is None else carry.to(h0.dtype)

@@ -84,7 +84,9 @@ def _require(t: torch.Tensor, what: str, dtypes=None) -> None:
 
 def bitpack(mag: torch.Tensor, tol: float):
     """K1: ``mag`` (N,) f32/f64 → (words ``(ceil(N/8),)`` uint8 in
-    ``np.packbits`` order, counts ``(ceil(N/1024),)`` int32)."""
+    ``np.packbits`` order, counts ``(ceil(N/1024),)`` int32).  ``mag`` may
+    be a view at any element offset: the kernel reads one that is not
+    16-byte aligned with element-wide loads, so nothing is copied."""
     _require(mag, "threshold_bitpack", (torch.float32, torch.float64))
     lib = load_library()
     n = mag.shape[0]

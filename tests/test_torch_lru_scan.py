@@ -17,6 +17,14 @@ order, decaying through a < 1); bf16 2e-2 (the output's one rounding);
 the RG-LRU block 1e-5 of its largest output (f32, matmuls and the scan
 summed in another order).
 
+``lru_scan_backward_chunked_ref``, the CPU model of the backward kernel's
+chunked order (zero-carry chunks, then their carries from the last chunk to
+the first, then each chunk again), is held against autograd through the
+plain version and against ``jax.vjp`` of the reference's oracle at chunk
+lengths 1, 7, 32 and T, within 1e-5 (f32: one extra rounding per chunk
+boundary); where dh is zero from some step on, or a is zero at a chunk
+boundary, its zeros are exact.
+
 The CUDA kernels themselves are held against the plain version on the
 card by the ``gpu`` cases of ``tests/test_torch_rules.py`` (the card's
 machine has no JAX, and this file imports it) and by ``chip_smoke.py``.
@@ -36,7 +44,8 @@ from repro_torch.configs import get_config
 from repro_torch.convert import state_from_numpy
 from repro_torch.kernels.lru_scan import kernel as K
 from repro_torch.kernels.lru_scan import ops
-from repro_torch.kernels.lru_scan.ref import lru_scan_ref
+from repro_torch.kernels.lru_scan.ref import (
+    lru_scan_backward_chunked_ref, lru_scan_ref)
 from repro_torch.models import recurrent as rec
 
 # Small shapes: one intra-op thread each leaves the cores to the other
@@ -179,3 +188,82 @@ def test_rglru_train_matches_reference_associative_scan():
     got = rec.rglru_train(cfg, tp, torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max(),
                                rtol=0)
+
+
+CHUNK_T = (1, 31, 100, 256)
+CHUNKS = ("1", "7", "32", "T")
+
+
+def _chunk_case(T, chunk, h0):
+    """a, b, h0 (or None), the forward's h and a cotangent dh (torch, f32),
+    and the chunk length (``"T"``: one chunk)."""
+    arrs = _inputs(2, T, 24, seed=T + 3, h0=h0)
+    dh = np.random.RandomState(T + 4).randn(2, T, 24).astype(np.float32)
+    a, b, *rest = _port(arrs)
+    h0_t = rest[0] if h0 else None
+    h = lru_scan_ref(a, b, h0_t)
+    return arrs, dh, (a, b, h0_t, h), T if chunk == "T" else int(chunk)
+
+
+@pytest.mark.parametrize("T", CHUNK_T)
+@pytest.mark.parametrize("chunk", CHUNKS)
+@pytest.mark.parametrize("h0", [True, False], ids=["h0", "zeros"])
+def test_chunked_backward_matches_autograd(T, chunk, h0):
+    _, dh, (a, b, h0_t, h), L = _chunk_case(T, chunk, h0)
+    ins = [t.clone().requires_grad_() for t in [a, b] + ([h0_t] if h0
+                                                         else [])]
+    want = torch.autograd.grad(lru_scan_ref(*ins), ins, torch.from_numpy(dh))
+    da, db, dh0 = lru_scan_backward_chunked_ref(a, h, h0_t,
+                                                torch.from_numpy(dh), L)
+    assert (dh0 is None) == (not h0)
+    for g, w in zip((da, db) + ((dh0,) if h0 else ()), want):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("T", CHUNK_T)
+@pytest.mark.parametrize("chunk", CHUNKS)
+@pytest.mark.parametrize("h0", [True, False], ids=["h0", "zeros"])
+def test_chunked_backward_matches_reference_vjp(T, chunk, h0):
+    arrs, dh, (a, _, h0_t, h), L = _chunk_case(T, chunk, h0)
+    _, vjp = jax.vjp(r_lru_scan_ref, *(jnp.asarray(x) for x in arrs))
+    want = vjp(jnp.asarray(dh))
+    got = lru_scan_backward_chunked_ref(a, h, h0_t, torch.from_numpy(dh), L)
+    assert len(want) == (3 if h0 else 2)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 32])
+@pytest.mark.parametrize("zero_from", [0, 5, 64, 99])
+def test_chunked_backward_keeps_zeros_where_dh_is_zero_on(chunk, zero_from):
+    """dh zero from step t on: da and db are exact zeros there (the carry
+    out of those chunks is an exact 0, not a rounding of one)."""
+    _, dh, (a, _, h0_t, h), _ = _chunk_case(100, "T", True)
+    dh[:, zero_from:] = 0.0
+    da, db, _ = lru_scan_backward_chunked_ref(a, h, h0_t,
+                                              torch.from_numpy(dh), chunk)
+    assert torch.count_nonzero(da[:, zero_from:]) == 0
+    assert torch.count_nonzero(db[:, zero_from:]) == 0
+    if zero_from:
+        assert torch.count_nonzero(db[:, :zero_from]) > 0
+
+
+@pytest.mark.parametrize("chunk", [7, 32])
+def test_chunked_backward_with_a_zero_at_a_chunk_boundary(chunk):
+    """a = 0 at the first step of a chunk cuts the carry there: before it,
+    g is dh plus the carry of the steps up to the zero, exactly as the
+    plain walk has it."""
+    _, dh, (a, b, h0_t, _), _ = _chunk_case(100, "T", True)
+    a = a.clone()
+    a[:, chunk] = 0.0
+    a[:, 3 * chunk] = 0.0
+    h = lru_scan_ref(a, b, h0_t)
+    ins = [t.clone().requires_grad_() for t in (a, b, h0_t)]
+    want = torch.autograd.grad(lru_scan_ref(*ins), ins, torch.from_numpy(dh))
+    got = lru_scan_backward_chunked_ref(a, h, h0_t, torch.from_numpy(dh),
+                                        chunk)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+    # db just before the cut is dh there plus nothing carried across it
+    assert torch.equal(got[1][:, chunk - 1], torch.from_numpy(dh)[:, chunk - 1])

@@ -424,9 +424,38 @@ def test_flash_attention_matches_plain_version_on_the_card(card, dtype, case):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
-# (B, T, R, h0) for K7: T = 1, odd T and R, the training slice's width
+# K1's edges: n one short of and one past 4, 32 and 1024 elements
+K1_CARD_N = [1, 3, 31, 33, 1023, 1025, 4097, (1 << 20) + 5]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", K1_CARD_N)
+def test_threshold_bitpack_edges_on_the_card(card, dtype, n):
+    """K1 bit for bit against ``bitpack_ref``: ragged n, NaN and ±inf
+    magnitudes, tol 0 and 0.5, and a view one element past a 16-byte
+    boundary (the kernel's unaligned variant)."""
+    g = torch.Generator(device=card).manual_seed(n)
+    mag = torch.rand(n + 1, generator=g, device=card, dtype=dtype)
+    mag[::5] = float("nan")
+    mag[1::7] = float("inf")
+    mag[2::11] = float("-inf")
+    K.reset_launches()
+    for skip in (0, 1):
+        m = mag[skip:skip + n]
+        assert m.data_ptr() % 16 == skip * m.element_size()
+        for tol in (0.0, 0.5):
+            w, c = ops.threshold_bitpack(m, tol)
+            w_r, c_r = ref.bitpack_ref(m, tol)
+            assert _same_bytes(w, w_r) and _same_bytes(c, c_r)
+    assert K.LAUNCHES["threshold_bitpack"] == 4
+
+
+# (B, T, R, h0) for K7: T = 1, odd T and R, T one short of and one past a
+# 32-step boundary, B = 1, T = 4096, the training slice's width
 LRU_CARD_CASES = [(1, 1, 5, True), (2, 7, 100, False), (2, 300, 2560, True),
-                  (3, 64, 33, False)]
+                  (3, 64, 33, False), (1, 31, 100, True),
+                  (2, 33, 2560, False), (1, 4096, 2560, True)]
 
 
 @pytest.mark.gpu
@@ -455,6 +484,22 @@ def test_lru_scan_matches_plain_version_on_the_card(card, dtype, case):
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     for x, y in zip((got,) + got_grads, (want,) + want_grads):
         torch.testing.assert_close(x.float(), y.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lru_scan_backward_is_deterministic_on_the_card(card, dtype):
+    """Two launches of K7's backward on the same inputs give the same
+    bytes (no atomics), at the training slice's shape."""
+    g = torch.Generator(device=card).manual_seed(4)
+    a = torch.rand((2, 1024, 2560), generator=g, device=card).to(dtype)
+    b, dh = (torch.randn((2, 1024, 2560), generator=g, device=card).to(dtype)
+             for _ in range(2))
+    h0 = torch.randn((2, 2560), generator=g, device=card).to(dtype)
+    h = LK.lru_scan(a, b, h0)
+    first = LK.lru_scan_backward(a, h, h0, dh)
+    again = LK.lru_scan_backward(a, h, h0, dh)
+    assert all(_same_bytes(x, y) for x, y in zip(first, again))
 
 
 @pytest.mark.gpu
