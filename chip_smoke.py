@@ -10,8 +10,8 @@ the card, then drives the port's four paths: the paper's pipeline
 prefill through flash attention, decode, KV scrutiny, base + delta
 snapshots, restore, exact continuation); the paper's NPB evaluation (the
 eight class-S programs: AD scrutiny in f64, the Table II counts, the
-§IV-C restart through the tiled pack and the unpack kernel, scrutinized
-saves and restores that verify, Table III); and the training path
+§IV-C restart through the tiled pack and one unpack launch a program,
+scrutinized saves and restores that verify, Table III); and the training path
 (recurrentgemma-2b at full width, depth cut to fit: train steps through
 the RG-LRU scan and flash attention forward and backward, AD scrutiny of
 the training state, scrutinized and full saves, restores and
@@ -49,7 +49,8 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
 from repro_torch.kernels.lru_scan import kernel as LK  # noqa: E402
 from repro_torch.kernels.lru_scan import ops as lru_ops  # noqa: E402
 from repro_torch.kernels.lru_scan.ref import (  # noqa: E402
-    BWD_CHUNK, lru_scan_backward_chunked_ref, lru_scan_ref)
+    BWD_CHUNK, FWD_CHUNK, lru_scan_backward_chunked_ref, lru_scan_chunked_ref,
+    lru_scan_ref)
 from repro_torch.kernels.mask_pack import kernel as K  # noqa: E402
 from repro_torch.kernels.mask_pack import ops, ref  # noqa: E402
 
@@ -186,7 +187,7 @@ def word_forms(sel: torch.Tensor) -> dict:
 def phase_kernels() -> int:
     gen = torch.Generator(device=DEV)
     gen.manual_seed(1234)
-    cases = 0
+    cases = groups = 0
     for n in SIZES:
         for frac in DENSITIES:
             sel = selector(n, frac, gen)
@@ -212,6 +213,7 @@ def phase_kernels() -> int:
                     check(same_bytes(w, w_r) and same_bytes(c, c_r),
                           f"K1 {dt} n={n} frac={frac}")
                     cases += 1
+            group = []      # K5's leaves of every width, for one group
             for dt in DTYPES:
                 x = values(n, dt, gen)
                 inexact = dt.is_floating_point or dt.is_complex
@@ -223,14 +225,23 @@ def phase_kernels() -> int:
                         p, c = ops.pack(v, w)
                         check(same_bytes(p, p_r) and same_bytes(c, c_r),
                               f"K2 tiled {dt} n={n} frac={frac} {how}")
-                    # K5 back from the tiles, fill 0 and a non-zero fill;
+                    # K5 back from the tiles, from each form of the words
+                    # (the odd-address words with the tiles at an odd
+                    # element address too), fill 0 and a non-zero fill;
                     # the critical values come back as they went in
-                    for fill in (0, 1):
-                        o = ops.unpack(p, sel, n=n, fill=fill)
-                        check(same_bytes(o, ref.unpack_blocks_ref(p, sel,
-                                                                  fill))
-                              and same_bytes(o[sel], v[sel]),
-                              f"K5 {dt} n={n} frac={frac} fill={fill}")
+                    odd_p = torch.empty(p.numel() + 1, dtype=dt,
+                                        device=DEV)[1:]
+                    odd_p.copy_(p.reshape(-1))
+                    for how, w in forms.items():
+                        src = odd_p.view(p.shape) if how == "odd address" \
+                            else p
+                        for fill in (0, 1):
+                            o = ops.unpack(src, w, n=n, fill=fill)
+                            check(same_bytes(o, ref.unpack_blocks_ref(
+                                p, sel, fill)) and same_bytes(o[sel], v[sel]),
+                                  f"K5 {dt} n={n} frac={frac} fill={fill} "
+                                  f"{how}")
+                    group.append((p, v))
                     # K2 dense form (pack_group), K4 back from its payload
                     total = int(c_r.sum())
                     pay_w = ref.pack_payload_ref(v, sel, total)[0]
@@ -268,10 +279,37 @@ def phase_kernels() -> int:
                         check(same_bytes(K.delta_flags(c8, b8, 2048),
                                          ref.delta_flags_ref(c8, b8, 2048)),
                               f"K3 unaligned {dt} n={n} frac={frac}")
+            groups += unpack_group_cases(group * 3, sel, forms)
     torch.cuda.synchronize()
-    print(f"kernels: {cases} cases bit-identical to the plain versions; "
-          f"comparison launches {json.dumps(K.LAUNCHES)}")
+    print(f"kernels: {cases} cases bit-identical to the plain versions, "
+          f"K5 also in {groups} mixed-width groups; comparison launches "
+          f"{json.dumps(K.LAUNCHES)}")
     return cases
+
+
+def unpack_group_cases(leaves, sel, forms) -> int:
+    """K5 over one list of leaves of mixed widths (each leaf's tiled pack
+    and values, all under the mask ``sel``), from each form of the words,
+    fill 0 and 1: each output bit for bit the plain version's and its
+    leaf's own ``unpack``; a list longer than the launch's leaf table
+    takes one launch per ``K.UNPACK_GROUP_LEAVES`` leaves."""
+    n = sel.numel()
+    launches = -(-len(leaves) // K.UNPACK_GROUP_LEAVES)
+    for how, w in forms.items():
+        for fill in (0, 1):
+            before = K.LAUNCHES["unpack"]
+            got = ops.unpack_group([p for p, _ in leaves],
+                                   [w] * len(leaves), [n] * len(leaves),
+                                   fill=fill)
+            check(K.LAUNCHES["unpack"] == before + launches,
+                  f"K5 group of {len(leaves)}: "
+                  f"{K.LAUNCHES['unpack'] - before} launches")
+            for (p, v), o in zip(leaves, got):
+                check(same_bytes(o, ref.unpack_blocks_ref(p, sel, fill))
+                      and same_bytes(o, ops.unpack(p, w, n=n, fill=fill))
+                      and same_bytes(o[sel], v[sel]),
+                      f"K5 group {p.dtype} n={n} fill={fill} {how}")
+    return len(forms) * 2
 
 
 # K1's edges: N % 4, N % 32 and N % 1024 non-zero, one short of and one
@@ -430,9 +468,11 @@ LRU_CASES = [(2, t, r, h0, dt) for t in (1, 7, 31, 33, 256, 1000, 1024)
 
 def phase_lru_scan() -> int:
     """K7 forward and backward against the plain version and autograd's
-    gradient through it; the backward also against its CPU model's order
-    (``lru_scan_backward_chunked_ref`` at the kernel's chunk), and two
-    backward launches on the same inputs must give the same bytes."""
+    gradient through it; each also against its CPU model's order
+    (``lru_scan_chunked_ref`` and ``lru_scan_backward_chunked_ref`` at the
+    kernels' chunk): the forward bit for bit, the backward within the
+    tolerance; the forward's first chunk bit for bit the plain version's;
+    two launches of each on the same inputs must give the same bytes."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(78)
     worst, model = {}, {}
@@ -446,10 +486,17 @@ def phase_lru_scan() -> int:
         grads = LK.lru_scan_backward(a, h, h0, dh)
         again = LK.lru_scan_backward(a, h, h0, dh)
         what = f"K7 B={B} T={T} R={R} h0={with_h0} {dt}"
+        check(same_bytes(h, LK.lru_scan(a, b, h0)),
+              f"{what}: two forward launches on the same inputs differ")
         check(all(x is None or same_bytes(x, y)
                   for x, y in zip(grads, again)),
               f"{what}: two backward launches on the same inputs differ")
         h_r, grads_r = lru_plain_grads(a, b, h0, dh)
+        check(same_bytes(h[:, :FWD_CHUNK], h_r[:, :FWD_CHUNK]),
+              f"{what}: the forward's first chunk differs from the plain "
+              f"version's")
+        check(same_bytes(h, lru_scan_chunked_ref(a, b, h0)),
+              f"{what}: the forward differs from its chunked CPU model")
         chunked = lru_scan_backward_chunked_ref(a, h, h0, dh)
         tol = lru_tol(dt)
         for tag, got, want in zip(("fwd", "da", "db", "dh0"),
@@ -466,10 +513,13 @@ def phase_lru_scan() -> int:
     torch.cuda.synchronize()
     print(f"K7: {len(LRU_CASES)} cases, forward and backward within "
           f"tolerance of the plain version (f32 1e-5, bf16 2e-2), each "
-          f"backward deterministic over two launches; max |err| "
-          f"{json.dumps(worst)}; backward against the chunked CPU model "
+          f"deterministic over two launches, the forward's first "
+          f"{FWD_CHUNK} steps bit for bit the plain version's; max |err| "
+          f"{json.dumps(worst)}; the forward bit for bit its chunked CPU "
+          f"model (chunk {FWD_CHUNK}); the backward against its model "
           f"(chunk {BWD_CHUNK}) max |err| {json.dumps(model)}; comparison "
-          f"launches {json.dumps(LK.LAUNCHES)}")
+          f"launches "
+          f"{json.dumps(LK.LAUNCHES)}")
     return len(LRU_CASES)
 
 
@@ -1385,11 +1435,12 @@ REF_FT_Y_CRITICAL = 56176    # the reference's AD count on the CPU
 def phase_npb(root: str):
     """Each program on the card: its checkpoint state, AD scrutiny (K1 on
     the f64 accumulators of the float64 and complex128 leaves), Table II,
-    the §IV-C restart (K2 tiled + K5) and both corruptions, a scrutinized
-    save and a restore into fresh tensors (K2 dense, K4) that resumes and
-    verifies, and Table III.  → (launches over the phase, K5's inputs in
-    the restart: (leaf, tiled pack, mask, n) for each leaf of each
-    program, timed in phase 5)."""
+    the §IV-C restart (K2 tiled, a launch a leaf, + one K5 launch a
+    program) and both corruptions, a scrutinized save and a restore into
+    fresh tensors (K2 dense, K4) that resumes and verifies, and Table III.
+    → (launches over the phase, K5's groups in the restart: (program,
+    leaf names, tiled packs, words, ns) for each program, timed in phase
+    5)."""
     from repro_torch import CheckpointManager, Level
     from repro_torch.core.report import storage_table, summary_table
     from repro_torch.npb import ALL_BENCHMARKS, get_benchmark
@@ -1417,12 +1468,15 @@ def phase_npb(root: str):
                   f"critical (the reference on the CPU: "
                   f"{REF_FT_Y_CRITICAL}); the 4096 lattice elements "
                   f"critical, the kx = 64 plane uncritical")
-        for leaf, v in _tree.flatten_with_names(state)[0]:
-            flat, m = v.reshape(-1), rep[leaf].device_mask()
-            # the tiled pack by the plain version: no launch counted here
-            k5_inputs.append((f"{name}({leaf})",
-                              ref.pack_blocks_ref(flat, m)[0], m,
-                              flat.numel()))
+        # K5's group in the restart: every leaf's tiled pack (by the plain
+        # version: no launch counted here), its words, its n
+        named = _tree.flatten_with_names(state)[0]
+        k5_inputs.append((name, [leaf for leaf, _ in named],
+                          [ref.pack_blocks_ref(v.reshape(-1),
+                                               rep[leaf].device_mask())[0]
+                           for leaf, v in named],
+                          [rep[leaf].device_words() for leaf, _ in named],
+                          [v.numel() for _, v in named]))
         ok, restart_s = synced(lambda: verify_restart(bench, rep))
         check(ok, f"npb {name}: the restart from critical elements failed")
         check(verify_restart(bench, rep, corrupt="uncritical"),
@@ -1466,6 +1520,9 @@ def phase_npb(root: str):
     launches = dict(K.LAUNCHES)
     for k in ("threshold_bitpack", "pack", "mask_scatter", "unpack"):
         check(launches[k] > 0, f"npb: {k} was never launched: {launches}")
+    check(launches["unpack"] == len(k5_inputs),
+          f"npb: {launches['unpack']} K5 launches for {len(k5_inputs)} "
+          f"programs, not one a program")
     print(f"npb: eight programs in {seconds:.1f} s; launches "
           f"{json.dumps(launches)}")
     return launches, k5_inputs
@@ -1553,8 +1610,9 @@ def sdpa_call(q, k, v):
 
 
 def phase_timing(main, fa_in, k5_inputs) -> list:
-    """K1–K6 timed at the main path's and the prefill's shapes, K5 also at
-    the NPB restart's leaves; main() fills in each row's launches."""
+    """K1–K6 timed at the main path's and the prefill's shapes, K5 also on
+    the NPB restart's groups (one a program) and, beside them, leaf by
+    leaf; main() fills in each row's launches."""
     state, sel_w, rep = main["state"], main["sel_w"], main["rep"]
     w = state["w"]
     n = w.numel()
@@ -1650,37 +1708,60 @@ def phase_timing(main, fa_in, k5_inputs) -> list:
         k4_bytes)
     del curr, base, c8, b8
     torch.cuda.empty_cache()
-    # K5: w back from its tiled pack (K2's tiled form).  It reads the mask
-    # and each tile's critical prefix and writes every element.
+    # K5: w back from its tiled pack (K2's tiled form), from the report's
+    # words.  It reads the words and each tile's critical prefix and
+    # writes every element.
     packed, _ = ops.pack(w, words_w)
-    k5_bytes = n + 4 * total + 4 * n
-    print(f"K5 bound: mask {n} B + critical prefixes {4 * total} B + "
-          f"output {4 * n} B = {k5_bytes} B at {HBM_BYTES_PER_S:.3g} B/s")
-    row("unpack", lambda: ops.unpack(packed, sel_w, n=n, fill=0.0),
+    k5_bytes = n // 8 + 4 * total + 4 * n
+    print(f"K5 bound from words: {n // 8} + critical prefixes {4 * total} + "
+          f"output {4 * n} = {k5_bytes} B = "
+          f"{k5_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms; from a byte mask "
+          f"{n + 4 * total + 4 * n} B = "
+          f"{(n + 4 * total + 4 * n) / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    row("unpack", lambda: ops.unpack(packed, words_w, n=n, fill=0.0),
         lambda: ref.unpack_blocks_ref(packed, sel_w, 0.0), None, k5_bytes)
+    print(f"time unpack 2^29 f32: batched "
+          f"{batched_ms(lambda: ops.unpack(packed, words_w, n=n)):.4f} ms")
     del packed
     torch.cuda.empty_cache()
-    # K5 at the leaves of the NPB restart (phase 8), where it is launched
-    k5 = {"ms": 0.0, "batched": 0.0, "bound": 0.0, "plain": 0.0}
-    per_leaf = []
-    for leaf, p, m, n_leaf in k5_inputs:
-        out = ops.unpack(p, m, n=n_leaf, fill=0.0)
-        check(same_bytes(out, ref.unpack_blocks_ref(p, m, 0.0)),
-              f"K5 at {leaf} differs from its plain version")
-        crit = int(m.sum())
-        t = median_ms(lambda: ops.unpack(p, m, n=n_leaf, fill=0.0))
+    # K5 at the NPB restart's leaves (phase 8): one group a program, as the
+    # restart launches it; beside it each leaf by its own call (a launch a
+    # leaf, the split before the group)
+    k5 = dict.fromkeys(("ms", "batched", "per_leaf", "bound", "bound_mask",
+                        "plain"), 0.0)
+    per_program = []
+    for name, leaves, packs, words, ns in k5_inputs:
+        masks = [ops.expand_mask_bits(wd, n=nl) for wd, nl in zip(words, ns)]
+        got = ops.unpack_group(packs, words, ns)
+        for leaf, p, m, o in zip(leaves, packs, masks, got):
+            check(same_bytes(o, ref.unpack_blocks_ref(p, m, 0.0)),
+                  f"K5 at {name}({leaf}) differs from its plain version")
+        t = median_ms(lambda: ops.unpack_group(packs, words, ns))
         k5["ms"] += t
-        k5["batched"] += batched_ms(lambda: ops.unpack(p, m, n=n_leaf,
-                                                       fill=0.0))
-        k5["plain"] += median_ms(lambda: ref.unpack_blocks_ref(p, m, 0.0))
-        k5["bound"] += (n_leaf + p.element_size() * (crit + n_leaf)) \
-            / HBM_BYTES_PER_S * 1e3
-        per_leaf.append([leaf, n_leaf, str(p.dtype).replace("torch.", ""),
-                         round(t, 4)])
-    print(f"time unpack at the NPB restart's {len(k5_inputs)} leaves: "
-          f"kernel {k5['ms']:.4f} ms in all (batched {k5['batched']:.4f}), "
-          f"bound {k5['bound']:.4f} ms, plain {k5['plain']:.4f} ms; per "
-          f"leaf (n, dtype, ms) {json.dumps(per_leaf)}")
+        k5["batched"] += batched_ms(lambda: ops.unpack_group(packs, words,
+                                                             ns))
+        k5["plain"] += median_ms(lambda: [
+            ref.unpack_blocks_ref(p, m, 0.0) for p, m in zip(packs, masks)])
+        split = []
+        for leaf, p, wd, nl in zip(leaves, packs, words, ns):
+            tl = median_ms(lambda: ops.unpack(p, wd, n=nl))
+            k5["per_leaf"] += tl
+            split.append([leaf, nl, str(p.dtype).replace("torch.", ""),
+                          round(tl, 4)])
+        for p, m, nl in zip(packs, masks, ns):
+            crit, width = int(m.sum()), p.element_size()
+            k5["bound"] += (-(-nl // 8) + width * (crit + nl)) \
+                / HBM_BYTES_PER_S * 1e3
+            k5["bound_mask"] += (nl + width * (crit + nl)) \
+                / HBM_BYTES_PER_S * 1e3
+        per_program.append([name, round(t, 4), split])
+    print(f"time unpack at the NPB restart: {len(k5_inputs)} groups (one "
+          f"launch a program) {k5['ms']:.4f} ms in all (batched "
+          f"{k5['batched']:.4f}); the {sum(len(x[1]) for x in k5_inputs)} "
+          f"leaves by one call each {k5['per_leaf']:.4f} ms in all; bound "
+          f"from words {k5['bound']:.4f} ms (from a byte mask "
+          f"{k5['bound_mask']:.4f}), plain {k5['plain']:.4f} ms; per program "
+          f"(ms, per leaf: n, dtype, ms alone) {json.dumps(per_program)}")
     # K6 at the serving prefill's shape, on layer 0's q/k/v of that run
     q, k, v, kw = fa_in["q"], fa_in["k"], fa_in["v"], fa_in["kw"]
     B, T, H, D = q.shape

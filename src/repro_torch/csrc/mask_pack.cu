@@ -450,43 +450,154 @@ scatter_kernel(const W* __restrict__ payload, long long total,
   }
 }
 
-// In-tile exclusive scan of a byte mask (K5): the slot of this thread's
-// element among the critical elements of its tile (ballot + popc within
-// the warp, a 16-entry shared prefix across warps).
-__device__ __forceinline__ int tile_slot(bool m, int* warp_count) {
-  const unsigned b = __ballot_sync(0xffffffffu, m);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) warp_count[warp] = __popc(b);
-  __syncthreads();
-  int before = 0;
-  for (int w = 0; w < warp; ++w) before += warp_count[w];
-  return before + __popc(b & ((1u << lane) - 1u));
+// ---------------------------------------------------------------------------
+// K5  unpack (the inverse of the tiled K2), from the words, a group of
+// leaves in one launch
+// Replaces kernels/mask_pack/kernel.py:unpack_blocks_kernel (_unpack_kernel).
+// Bound: bytes.  It reads the N/8 words and each tile's critical prefix
+// once and writes every output element once: for the 2^29-element f32 leaf
+// at 14.8 % critical, 0.76 ms at 3.35 TB/s (a byte mask would add 7/8 N).
+// Design: K4's move without its count pass.  Tile i of a leaf's tiled pack
+// holds its critical values from packed[i * 512] on, so the in-tile scan
+// of the tile's 64 bytes of words gives every critical element its source:
+// no count pass, no scan over tiles.  One warp owns a 512-element tile and
+// walks the group's tiles grid-stride (8 warps a block, no barrier, no
+// shared memory); lanes 0-15 load the tile's words and scan their counts
+// with shuffles, and each step a lane fills 16 bytes of elements,
+// packed[...] where its bit is set and the fill elsewhere, and writes them
+// with one 16-byte streaming store (__stcs: the output is not read back
+// here, so it need not stay in L2), so a warp's store is 512 contiguous
+// bytes.  The next tile's words are loaded while this tile's values are in
+// flight.  The widest width's path sets the registers for all (64).
+// The group: its callers (the NPB restart rebuilds every leaf of a
+// program) hand over many small leaves of mixed dtypes, where one launch a
+// leaf costs the host's issue time and not the card's.  The leaf table
+// travels in the kernel's parameters (__grid_constant__, kGroupLeaves
+// entries, 2 KB: no copy is issued for it); a warp finds its tile's leaf
+// by walking the table forward, which its grid-stride tiles do in order,
+// and dispatches on the leaf's element width, the same on every lane, so
+// the warp does not diverge.  Each leaf's fill travels as its bytes.
+// Edges: tail bits past n are masked off; words at an odd address are read
+// byte by byte, packed tiles at any element address element by element;
+// the ragged end of a leaf is written element by element.  A load cannot
+// turn inf into NaN, as the TPU kernel's transposed 0/1 permutation matmul
+// did (0 * inf = NaN): every output is a packed value or the fill bytes.
+// ---------------------------------------------------------------------------
+constexpr int kGroupLeaves = 32;  // leaves a launch takes (the table's
+                                  // limit); the wrapper splits a longer list
+
+struct UnpackLeaf {
+  const void* packed;
+  const uint8_t* words;
+  void* out;
+  long long n;
+  long long first_tile;  // in the group
+  int width;             // bytes an element: 1, 2, 4, 8 or 16
+  U128 fill;
+};
+
+struct UnpackTable {
+  UnpackLeaf leaf[kGroupLeaves];
+  int count;
+  long long tiles;
+};
+
+// Lanes 0-15: the words of tile t of the group.  Walks *leaf forward to
+// t's leaf (a warp's tiles come in order).
+__device__ __forceinline__ uint32_t group_tile_word(const UnpackTable& table,
+                                                   int* leaf, long long t,
+                                                   int lane) {
+  while (*leaf + 1 < table.count && table.leaf[*leaf + 1].first_tile <= t)
+    ++*leaf;
+  const UnpackLeaf& l = table.leaf[*leaf];
+  if (lane >= kGroups) return 0u;
+  const long long e0 = (t - l.first_tile) * kTile + 32 * lane;
+  if ((reinterpret_cast<uintptr_t>(l.words) & 3u) == 0)
+    return group_word(l.words, e0, l.n);
+  // words at an odd address: byte by byte, nothing past ceil(n/8) bytes
+  if (e0 >= l.n) return 0u;
+  const long long nbytes = (l.n + 7) >> 3, k0 = e0 >> 3;
+  const long long k1 = k0 + 4 < nbytes ? k0 + 4 : nbytes;
+  uint32_t w = 0;
+  for (long long k = k0; k < k1; ++k)
+    w |= static_cast<uint32_t>(l.words[k]) << (8 * (k - k0));
+  return w;
 }
 
-// ---------------------------------------------------------------------------
-// K5  unpack (the inverse of the tiled K2)
-// Replaces kernels/mask_pack/kernel.py:unpack_blocks_kernel (_unpack_kernel).
-// Bound: bytes.  It reads every mask byte and the critical prefix of each
-// packed tile once and writes every output element once.  Design: one
-// element per thread on a byte mask (the NPB restart holds one); tile i's
-// values start at packed[i * 512], so the in-tile scan alone gives each
-// critical element its source; each thread writes
-// mask ? packed[tile * 512 + slot] : fill.  The TPU kernel
-// unpacked with the transposed 0/1 permutation matmul, so one non-finite
-// critical value poisoned its tile (0 * inf = NaN); a load cannot.  The
-// ragged last tile is masked here (i < n), with no padded copy.
-// ---------------------------------------------------------------------------
-template <typename W>
-__global__ void __launch_bounds__(kTile)
-unpack_kernel(const W* __restrict__ packed, const uint8_t* __restrict__ mask,
-              long long n, W fill, W* __restrict__ out) {
-  __shared__ int warp_count[kTile / 32];
-  const long long base = (long long)blockIdx.x * kTile;
-  const long long i = base + threadIdx.x;
-  const bool m = i < n && mask[i] != 0;
-  const int slot = tile_slot(m, warp_count);
-  if (i < n) out[i] = m ? packed[base + slot] : fill;
+// Tile t of ``leaf`` from its words (lanes 0-15): the values' loads of at
+// most four 16-byte steps a lane are issued before their stores (64 B a
+// lane, whatever the width, so no width's registers hold the others back),
+// and ``next`` (the next tile's words) right after the first loads, so a
+// warp waits on one memory latency a tile, not two.
+template <typename W, typename Next>
+__device__ __forceinline__ void unpack_tile(const UnpackLeaf& leaf,
+                                            long long t, int lane,
+                                            uint32_t word, Next next) {
+  using L = Lane16<W>;
+  constexpr int kBatch = L::kSteps < 4 ? L::kSteps : 4;
+  const W* __restrict__ packed = static_cast<const W*>(leaf.packed);
+  W* __restrict__ out = static_cast<W*>(leaf.out);
+  const long long n = leaf.n, e0 = t * kTile;
+  W fill;
+  memcpy(&fill, &leaf.fill, sizeof(W));
+  uint32_t bits;
+  int before;
+  tile_groups(word, e0, n, lane, &bits, &before);
+#pragma unroll
+  for (int c0 = 0; c0 < L::kSteps; c0 += kBatch) {
+    L v[kBatch];
+#pragma unroll
+    for (int c = 0; c < kBatch; ++c) {
+      const Span sp = lane_span<L::kE>(c0 + c, lane, bits, before, e0);
+      long long s = sp.rank;
+#pragma unroll
+      for (int k = 0; k < L::kE; ++k) {
+        v[c].x[k] = fill;
+        if (sp.mine >> k & 1u) v[c].x[k] = packed[s++];
+      }
+    }
+    if (c0 == 0) next();
+#pragma unroll
+    for (int c = 0; c < kBatch; ++c) {
+      const long long e = e0 + (32 * (c0 + c) + lane) * L::kE;
+      if (e + L::kE <= n) {
+        __stcs(reinterpret_cast<uint4*>(out + e), v[c].u);
+      } else {
+#pragma unroll
+        for (int k = 0; k < L::kE; ++k)
+          if (e + k < n) out[e + k] = v[c].x[k];
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kMoveThreads)
+unpack_group_kernel(const __grid_constant__ UnpackTable table) {
+  const int lane = threadIdx.x & 31;
+  const long long warps = (long long)gridDim.x * (kMoveThreads / 32);
+  long long t = ((long long)blockIdx.x * kMoveThreads + threadIdx.x) >> 5;
+  int i = 0;  // t's leaf
+  uint32_t word = t < table.tiles ? group_tile_word(table, &i, t, lane) : 0u;
+  for (; t < table.tiles; t += warps) {
+    const UnpackLeaf& leaf = table.leaf[i];
+    const long long lt = t - leaf.first_tile;
+    int j = i;
+    uint32_t next_word = 0u;
+    auto next = [&]() {
+      if (t + warps < table.tiles)
+        next_word = group_tile_word(table, &j, t + warps, lane);
+    };
+    switch (leaf.width) {
+      case 1: unpack_tile<uint8_t>(leaf, lt, lane, word, next); break;
+      case 2: unpack_tile<uint16_t>(leaf, lt, lane, word, next); break;
+      case 4: unpack_tile<uint32_t>(leaf, lt, lane, word, next); break;
+      case 8: unpack_tile<unsigned long long>(leaf, lt, lane, word, next);
+        break;
+      default: unpack_tile<U128>(leaf, lt, lane, word, next); break;
+    }
+    i = j;
+    word = next_word;
+  }
 }
 
 inline unsigned grid_for(long long n, int tile) {
@@ -560,16 +671,18 @@ void launch_scatter(const void* payload, long long total,
       fill_from<W>(fill_lo, fill_hi), static_cast<W*>(out));
 }
 
-template <typename W>
-void launch_unpack(const void* packed, const uint8_t* mask, long long n,
-                   unsigned long long fill_lo, unsigned long long fill_hi,
-                   void* out, cudaStream_t s) {
-  unpack_kernel<W><<<grid_for(n, kTile), kTile, 0, s>>>(
-      static_cast<const W*>(packed), mask, n, fill_from<W>(fill_lo, fill_hi),
-      static_cast<W*>(out));
-}
-
 }  // namespace
+
+// What the host hands over, leaf by leaf (mp_unpack_group); outside the
+// anonymous namespace, so that the entry point keeps external linkage.
+struct UnpackArg {
+  const void* packed;
+  const uint8_t* words;
+  void* out;
+  long long n;
+  unsigned long long fill_lo, fill_hi;
+  int width;
+};
 
 extern "C" {
 
@@ -652,24 +765,33 @@ int mp_mask_scatter(const void* payload, long long total,
   return static_cast<int>(cudaGetLastError());
 }
 
-int mp_unpack(const void* packed, const uint8_t* mask, long long n,
-              unsigned long long fill_lo, unsigned long long fill_hi,
-              void* out, int itemsize, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (itemsize) {
-    case 1: launch_unpack<uint8_t>(packed, mask, n, fill_lo, fill_hi, out, s);
-      break;
-    case 2: launch_unpack<uint16_t>(packed, mask, n, fill_lo, fill_hi, out, s);
-      break;
-    case 4: launch_unpack<uint32_t>(packed, mask, n, fill_lo, fill_hi, out, s);
-      break;
-    case 8: launch_unpack<unsigned long long>(packed, mask, n, fill_lo,
-                                              fill_hi, out, s); break;
-    case 16: launch_unpack<U128>(packed, mask, n, fill_lo, fill_hi, out, s);
-      break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+// K5 over 1 .. kGroupLeaves leaves, each with n > 0, in one launch (the
+// wrapper splits a longer list); anything else, and a width other than 1,
+// 2, 4, 8 or 16, is refused before anything is launched.
+int mp_unpack_group(const UnpackArg* args, int count, void* stream) {
+  if (count < 1 || count > kGroupLeaves)
+    return static_cast<int>(cudaErrorInvalidValue);
+  UnpackTable table{};
+  for (int j = 0; j < count; ++j) {
+    const UnpackArg& a = args[j];
+    if (a.n <= 0 || (a.width != 1 && a.width != 2 && a.width != 4 &&
+                     a.width != 8 && a.width != 16))
+      return static_cast<int>(cudaErrorInvalidValue);
+    UnpackLeaf& leaf = table.leaf[j];
+    leaf.packed = a.packed;
+    leaf.words = a.words;
+    leaf.out = a.out;
+    leaf.n = a.n;
+    leaf.first_tile = table.tiles;
+    leaf.width = a.width;
+    leaf.fill = U128{a.fill_lo, a.fill_hi};
+    table.tiles += (a.n + kTile - 1) / kTile;
   }
+  table.count = count;
+  unpack_group_kernel<<<warp_grid(unpack_group_kernel, table.tiles,
+                                  kMoveThreads),
+                        kMoveThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      table);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -100,5 +100,10 @@ def check_launch(rc: int, what: str) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    """The raw handle of PyTorch's current stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of PyTorch's current stream on ``t``'s device.
+
+    Needs a CUDA build of PyTorch (every caller holds a CUDA tensor).  The
+    raw getter skips the Stream object that the public
+    ``torch.cuda.current_stream(device).cuda_stream`` builds first, host
+    time that a small launch's issue time feels."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

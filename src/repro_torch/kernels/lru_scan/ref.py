@@ -7,11 +7,12 @@ the loop.  Unlike the reference's oracle it carries ``h`` in f32 for every
 input dtype, as the reference's kernel and entry point do
 (``lru_scan/kernel.py:35``), and writes each step in ``a``'s dtype.
 
-Beside it, :func:`lru_scan_backward_chunked_ref`: the backward in the
-order of K7's backward kernel (chunks walked with a zero carry, the
-carries combined from the last chunk to the first, each chunk walked again
-with its true carry), a CPU model of that order that nothing on the main
-path calls.
+Beside it, the CPU models of K7's two kernels, which nothing on the main
+path calls: :func:`lru_scan_chunked_ref`, the forward in the forward
+kernel's order (chunks walked from a zero carry, the carries chained from
+the first chunk to the last, each chunk walked again from its true carry),
+and :func:`lru_scan_backward_chunked_ref`, the backward in the backward
+kernel's order (the same, from the last chunk to the first).
 """
 
 from __future__ import annotations
@@ -34,8 +35,55 @@ def lru_scan_ref(a: torch.Tensor, b: torch.Tensor,
     return torch.stack(out, dim=1)
 
 
-# Time steps per chunk in K7's backward kernel (csrc/lru_scan.cu kBwdSteps).
+# Time steps per chunk in K7's forward and backward kernels
+# (csrc/lru_scan.cu kSteps).
+FWD_CHUNK = 8
 BWD_CHUNK = 8
+
+
+def lru_scan_chunked_ref(a: torch.Tensor, b: torch.Tensor,
+                         h0: Optional[torch.Tensor] = None,
+                         chunk: int = FWD_CHUNK) -> torch.Tensor:
+    """:func:`lru_scan_ref` in chunks of ``chunk`` steps: h (B, T, R) in
+    a's dtype with an f32 carry.
+
+    A chunk [s, e) walked from h = 0 gives c^ (its last h) and
+    Q = a_s ... a_{e-1}; its true last h is c^ + Q h_{s-1}, with h0 (or 0)
+    before the first chunk.  Chunks start at multiples of ``chunk``; steps
+    past T act as a = 1, b = 0.  Each step rounds a h and + b separately,
+    as the plain version does, so the first chunk is bit for bit
+    :func:`lru_scan_ref`'s, and later chunks differ by the chain's one
+    rounding a chunk."""
+    B, T, R = a.shape
+    n = -(-T // chunk)
+    pad = n * chunk - T
+    f = torch.float32
+
+    def chunks(t, fill):
+        t = torch.nn.functional.pad(t.to(f), (0, 0, 0, pad), value=fill)
+        return t.view(B, n, chunk, R)
+
+    av, bv = chunks(a, 1.0), chunks(b, 0.0)
+    # 1. every chunk from a zero carry
+    x = torch.zeros((B, n, R), dtype=f, device=a.device)
+    q = torch.ones_like(x)
+    for u in range(chunk):
+        x = av[:, :, u] * x + bv[:, :, u]
+        q = q * av[:, :, u]
+    # 2. the carries, from the first chunk to the last
+    carry = (torch.zeros((B, R), dtype=f, device=a.device) if h0 is None
+             else h0.to(f))
+    c_in = torch.empty_like(x)
+    for k in range(n):
+        c_in[:, k] = carry
+        carry = q[:, k] * carry + x[:, k]
+    # 3. every chunk again from its true carry
+    x = c_in
+    h = torch.empty_like(av)
+    for u in range(chunk):
+        x = av[:, :, u] * x + bv[:, :, u]
+        h[:, :, u] = x
+    return h.view(B, n * chunk, R)[:, :T].to(a.dtype)
 
 
 def lru_scan_backward_chunked_ref(a: torch.Tensor, h: torch.Tensor,

@@ -17,17 +17,21 @@ plain versions live in ``ref.py``; ``ops`` picks them only for CPU tensors.
 | ``pack_into``    | K2 ``kernel.py:pack_blocks_kernel``    | packbits words  |
 | ``delta_flags``  | K3 ``kernel.py:delta_blocks_kernel``   | none            |
 | ``mask_scatter`` | K4 ``kernel.py:scatter_blocks_kernel`` | packbits words  |
-| ``unpack``       | K5 ``kernel.py:unpack_blocks_kernel``  | bool, 1 B each  |
+| ``unpack_group`` | K5 ``kernel.py:unpack_blocks_kernel``  | packbits words  |
 
-K2 and K4 take the mask as the ``np.packbits``-order words that K1 writes
-and a checkpoint's bitmap stores, (ceil(N/8),) uint8: 1 bit per element
-read, where a bool mask costs a byte.
+K2, K4 and K5 take the mask as the ``np.packbits``-order words that K1
+writes and a checkpoint's bitmap stores, (ceil(N/8),) uint8: 1 bit per
+element read, where a bool mask costs a byte.  K5 takes a list of leaves
+of any widths and rebuilds them in one launch (up to
+:data:`UNPACK_GROUP_LEAVES` leaves a launch).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+import functools
+import struct
+from typing import Dict, List, Sequence
 
 import torch
 
@@ -35,6 +39,9 @@ from repro_torch.kernels._build import CudaLibrary, check_launch, stream_of
 
 BLOCK = 512
 BITPACK_BLOCK = 1024
+# Leaves one K5 launch takes: the leaf table in its parameters
+# (csrc/mask_pack.cu kGroupLeaves).
+UNPACK_GROUP_LEAVES = 32
 
 # Launches per wrapper since the last reset_launches(): a run reads these
 # to show that its main path went through the kernels.
@@ -52,8 +59,7 @@ LIBRARY = CudaLibrary("mask_pack", {
     "mp_delta_flags": (_P, _P, _I64, _I64, _P, _P),
     "mp_mask_scatter": (_P, _I64, _P, _I64, _P, _P, ctypes.c_ulonglong,
                         ctypes.c_ulonglong, _P, ctypes.c_int, _P),
-    "mp_unpack": (_P, _P, _I64, ctypes.c_ulonglong, ctypes.c_ulonglong, _P,
-                  ctypes.c_int, _P),
+    "mp_unpack_group": (_P, ctypes.c_int, _P),
 })
 
 # What the last build did: {"so": path, "seconds": float, "built": bool,
@@ -208,27 +214,82 @@ def mask_scatter(payload: torch.Tensor, words: torch.Tensor, n: int,
     return out
 
 
-def unpack(packed: torch.Tensor, mask: torch.Tensor,
-           fill: torch.Tensor) -> torch.Tensor:
-    """K5: the flat tiled pack ``packed`` (nb*512,) and the (N,) mask,
-    N <= nb*512 → (N,) tensor with tile ``i``'s values (from
-    ``packed[i*512]`` on) at its critical positions, in order, and ``fill``
-    (a 0-d tensor of the packed dtype) elsewhere."""
-    _require(packed, "unpack")
-    _require(mask, "unpack", (torch.bool, torch.uint8))
-    n = mask.shape[0]
-    if mask.device != packed.device or packed.shape[0] % BLOCK \
-            or packed.shape[0] < n:
-        raise ValueError(f"unpack: needs whole {BLOCK}-element tiles "
-                         f"covering the mask on its device, got "
-                         f"{packed.shape[0]} packed for {n}")
-    if fill.dtype != packed.dtype:
-        raise TypeError("unpack: fill dtype differs from the packed dtype")
-    lib = load_library()
-    out = torch.empty(n, dtype=packed.dtype, device=packed.device)
-    lo, hi = _fill_words(fill)
-    check_launch(lib.mp_unpack(packed.data_ptr(), mask.data_ptr(), n, lo, hi,
-                               out.data_ptr(), packed.element_size(),
-                               stream_of(packed)), "unpack")
-    LAUNCHES["unpack"] += 1
-    return out
+# One leaf of a K5 launch as csrc/mask_pack.cu's ``UnpackArg`` lays it out:
+# packed, words and out pointers, n, the fill's 16 bytes, the width.
+_UNPACK_ARG = struct.Struct("<QQQq16si4x")
+
+
+def _fill_bytes(fill, dtype: torch.dtype) -> bytes:
+    """``fill`` cast to ``dtype`` (``torch.as_tensor(fill).to(dtype)``, as
+    ``ref.fill_tensor``) as 16 little-endian bytes, zero-padded.  A Python
+    number's cast is cached under its type and bits (so -0.0 is not 0.0):
+    the restart asks for the same few fills leaf after leaf, and a cast
+    costs more host time than a leaf (``scripts/kernel_timing.py`` times
+    both on the card's host)."""
+    kind = type(fill)
+    if kind is float:
+        return _cast_fill(dtype, kind, struct.pack("<d", fill), fill)
+    if kind is complex:
+        return _cast_fill(dtype, kind,
+                          struct.pack("<dd", fill.real, fill.imag), fill)
+    if kind in (bool, int):
+        return _cast_fill(dtype, kind, fill, fill)
+    return _cast_fill.__wrapped__(dtype, kind, None, fill)
+
+
+@functools.lru_cache(maxsize=64)
+def _cast_fill(dtype: torch.dtype, kind: type, bits, fill) -> bytes:
+    lo, hi = _fill_words(torch.as_tensor(fill).to(dtype))
+    return struct.pack("<QQ", lo, hi)
+
+
+def unpack_group(packs: Sequence[torch.Tensor],
+                 words: Sequence[torch.Tensor], ns: Sequence[int],
+                 fill=0) -> List[torch.Tensor]:
+    """K5 over a list of leaves: for each, its tiled pack, contiguous, of
+    nb*512 elements (any shape), its mask's ``np.packbits`` words
+    (ceil(n/8),) uint8 and n <= nb*512 → the (n,) tensor with tile ``i``'s
+    values (from element ``i*512`` of the pack on) at its critical
+    positions, in order, and ``fill`` (cast to the leaf's dtype) elsewhere.
+    The leaves may have any dtypes; one launch rebuilds up to
+    :data:`UNPACK_GROUP_LEAVES` of them (leaves with n = 0 take none), so a
+    longer list takes several."""
+    if not (len(packs) == len(words) == len(ns)):
+        raise ValueError("unpack: packs/words/ns length mismatch")
+    outs, rows = [], []
+    dev = None
+    for p, w, n in zip(packs, words, ns):
+        if not (isinstance(p, torch.Tensor) and isinstance(w, torch.Tensor)
+                and p.is_cuda and w.is_cuda):
+            where = [getattr(t, "device", type(t).__name__) for t in (p, w)]
+            raise RuntimeError(f"unpack: needs a CUDA tensor, got {where}")
+        if dev is None:
+            dev, index = p.device, p.get_device()
+        if p.get_device() != index or w.get_device() != index:
+            raise ValueError("unpack: the leaves lie on different cards")
+        if not (p.is_contiguous() and w.is_contiguous()) \
+                or w.dtype != torch.uint8 or w.dim() != 1:
+            raise ValueError("unpack: needs contiguous packs and 1-D uint8 "
+                             "words")
+        if w.shape[0] != (n + 7) // 8:
+            raise ValueError(f"unpack: {w.shape[0]} mask bytes for {n} "
+                             f"elements, not {(n + 7) // 8}")
+        size = p.numel()
+        if size % BLOCK or size < n:
+            raise ValueError(f"unpack: needs whole {BLOCK}-element tiles "
+                             f"covering the mask, got {size} packed for {n}")
+        out = torch.empty(n, dtype=p.dtype, device=dev)
+        outs.append(out)
+        if n:
+            rows.append(_UNPACK_ARG.pack(
+                p.data_ptr(), w.data_ptr(), out.data_ptr(), n,
+                _fill_bytes(fill, p.dtype), p.element_size()))
+    if rows:
+        lib = load_library()
+        stream = stream_of(packs[0])
+        for lo in range(0, len(rows), UNPACK_GROUP_LEAVES):
+            part = rows[lo:lo + UNPACK_GROUP_LEAVES]
+            check_launch(lib.mp_unpack_group(b"".join(part), len(part),
+                                             stream), "unpack")
+            LAUNCHES["unpack"] += 1
+    return outs

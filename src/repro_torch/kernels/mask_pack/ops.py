@@ -5,15 +5,17 @@ Device-resident checkpoint path (the save hot path):
     payload, counts = pack_group(flats, words, totals)   # K2, one payload
     payload_h = fetch(payload)                          # D2H: critical bytes
 
-K2 (``pack``, ``pack_group``, ``pack_critical``) and K4 (``mask_scatter``)
-take the mask as ``np.packbits``-order words, (ceil(N/8),) uint8: what K1
-writes, what the scrutiny report keeps on the device and what a
-checkpoint's bitmap stores.  Nothing widens them to a byte mask on the
-card; ``mask_to_words`` packs a bool mask for callers that hold one.
+K2 (``pack``, ``pack_group``, ``pack_critical``), K4 (``mask_scatter``)
+and K5 (``unpack``, ``unpack_group``) take the mask as
+``np.packbits``-order words, (ceil(N/8),) uint8: what K1 writes, what the
+scrutiny report keeps on the device and what a checkpoint's bitmap
+stores.  Nothing widens them to a byte mask on the card;
+``mask_to_words`` packs a bool mask for callers that hold one.
 
-``unpack`` (K5) is the inverse of the tiled ``pack`` (K2): the restart
-of the NPB programs rebuilds each leaf from its critical-only tiles.  It
-takes a bool mask.
+``unpack_group`` (K5) is the inverse of the tiled ``pack`` (K2): the
+restart of the NPB programs rebuilds all of a program's leaves from their
+critical-only tiles and their masks' words in one launch; ``unpack`` is
+its one-leaf case.
 
 The restore direction mirrors the save: ``mask_scatter`` (K4) moves only
 the critical payload and the mask's words H2D and re-expands the payload
@@ -32,7 +34,7 @@ the reference did for int and f64 leaves).
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence
 
 import numpy as np
 import torch
@@ -48,7 +50,7 @@ __all__ = ["DELTA_CHUNK_BYTES", "as_bytes", "delta_encode",
            "expand_mask_bits", "gather_payload", "mask_scatter",
            "mask_to_words", "pack", "pack_critical", "pack_group",
            "pack_to_payload", "payload_to_packed", "threshold_bitpack",
-           "unpack"]
+           "unpack", "unpack_group"]
 
 # Chunk granularity of the delta format, in bytes — a multiple of every
 # leaf itemsize so chunks never split an element.  The host encoder
@@ -60,9 +62,9 @@ DELTA_CHUNK_BYTES = 2048
 def _on_card(*tensors: torch.Tensor) -> bool:
     """True for CUDA tensors, False for CPU ones; raises on anything else
     or on a mix."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cuda"}:
+    if all(t.is_cuda for t in tensors):
         return True
+    kinds = {t.device.type for t in tensors}
     if kinds == {"cpu"}:
         return False
     raise RuntimeError(f"mask_pack: tensors on {sorted(kinds)}; the ops "
@@ -76,7 +78,8 @@ def _check_block(block: int, expected: int, on_card: bool) -> None:
 
 
 def _check_words(words: torch.Tensor, n: int, what: str) -> torch.Tensor:
-    words = words.reshape(-1)
+    if words.dim() != 1:
+        words = words.reshape(-1)
     if words.dtype != torch.uint8 or words.shape[0] != (n + 7) // 8:
         raise ValueError(f"{what}: the mask goes in as np.packbits words, "
                          f"({(n + 7) // 8},) uint8 for {n} elements, not "
@@ -103,28 +106,42 @@ def pack(flat: torch.Tensor, words: torch.Tensor, *, block: int = BLOCK):
     return packed.view(nb, block), counts
 
 
-def unpack(packed: torch.Tensor, mask: torch.Tensor, *, n: int,
-           block: int = BLOCK, fill=0.0) -> torch.Tensor:
-    """K5, the inverse of :func:`pack`: packed ``(nb, block)`` tiles +
-    (n,) bool ``mask`` → (n,) tensor with ``fill`` (cast to the packed
-    dtype) at uncritical positions.  The restart of the paper's §IV-C
-    (``npb.common.verify_restart``) rebuilds each leaf this way."""
-    mask = mask.reshape(-1)
-    if mask.shape[0] != n:
-        raise ValueError(f"unpack: mask has {mask.shape[0]} elements, n={n}")
-    if packed.dim() != 2 or packed.shape[1] != block \
-            or packed.shape[0] * block < n:
-        raise ValueError(f"unpack: packed {tuple(packed.shape)} does not "
-                         f"hold {n} elements in tiles of {block}")
-    card = _on_card(packed, mask)
+def unpack_group(packs: Sequence[torch.Tensor],
+                 words: Sequence[torch.Tensor], ns: Sequence[int], *,
+                 block: int = BLOCK, fill=0) -> List[torch.Tensor]:
+    """K5, the inverse of :func:`pack` for a list of leaves: each leaf's
+    packed ``(nb, block)`` tiles and its mask's ``np.packbits`` words,
+    (ceil(n/8),) uint8 → a list of flat (n,) tensors with ``fill`` (cast
+    to each leaf's dtype) at uncritical positions.  On the card one launch
+    rebuilds the whole list, whatever the leaves' dtypes.  The restart of
+    the paper's §IV-C (``npb.common.verify_restart``) rebuilds each
+    program's leaves this way."""
+    ns = [int(n) for n in ns]
+    if not (len(packs) == len(words) == len(ns)):
+        raise ValueError("unpack_group: packs/words/ns length mismatch")
+    if not packs:
+        return []
+    for p, n in zip(packs, ns):
+        if p.dim() != 2 or p.shape[1] != block or p.shape[0] * block < n:
+            raise ValueError(f"unpack: packed {tuple(p.shape)} does not "
+                             f"hold {n} elements in tiles of {block}")
+    card = _on_card(*packs, *words)
+    words = [_check_words(w, n, "unpack") for w, n in zip(words, ns)]
     _check_block(block, BLOCK, card)
-    # the fill stays on the host: the kernel takes its bytes by value
-    fill_t = ref.fill_tensor(fill, packed.dtype, "cpu")
     if not card:
-        return ref.unpack_blocks_ref(packed, mask, fill_t)
-    if n == 0:
-        return packed.reshape(-1)[:0].clone()
-    return K.unpack(packed.contiguous().view(-1), mask.contiguous(), fill_t)
+        return [ref.unpack_blocks_ref(p, ref.expand_mask_bits(w, n=n),
+                                      ref.fill_tensor(fill, p.dtype, "cpu"))
+                for p, w, n in zip(packs, words, ns)]
+    return K.unpack_group([p.contiguous() for p in packs],
+                          [w.contiguous() for w in words], ns, fill)
+
+
+def unpack(packed: torch.Tensor, words: torch.Tensor, *, n: int,
+           block: int = BLOCK, fill=0.0) -> torch.Tensor:
+    """K5 for one leaf (:func:`unpack_group`'s one-leaf case): packed
+    ``(nb, block)`` tiles + the mask's ``np.packbits`` words → (n,) tensor
+    with ``fill`` (cast to the packed dtype) at uncritical positions."""
+    return unpack_group([packed], [words], [n], block=block, fill=fill)[0]
 
 
 def gather_payload(packed: torch.Tensor, counts: torch.Tensor, *,

@@ -178,7 +178,8 @@ def unpack_blocks_ref(packed: torch.Tensor, mask: torch.Tensor, fill=0.0
     vals = torch.gather(bits, 1, slot.to(torch.int64).expand(bits.shape))
     fill_bits = _bits(fill_tensor(fill, packed.dtype, packed.device)
                       .reshape(1))
-    out = torch.where(mb, vals, fill_bits).reshape(nb * block, -1)[:n]
+    out = torch.where(mb, vals, fill_bits).reshape(nb * block,
+                                                   bits.shape[-1])[:n]
     return out.contiguous().view(packed.dtype).reshape(n)
 
 

@@ -71,8 +71,10 @@ def verify_restart(bench: Benchmark, report: CriticalityReport,
 
     ``corrupt``:
       None          – rebuild every leaf from its critical-only tiled pack
-                      (K2 tiled, then K5 with fill 0) on the state's
-                      device: critical elements restored, uncritical zero.
+                      (K2 tiled, a launch per leaf) and its mask's words,
+                      all of the program's leaves in one K5 launch (fill
+                      0) on the state's device: critical elements
+                      restored, uncritical zero.  No mask is widened.
       'uncritical'  – additionally overwrite every uncritical element with
                       garbage; verification must still PASS.
       'critical'    – corrupt random critical float elements; verification
@@ -85,17 +87,25 @@ def verify_restart(bench: Benchmark, report: CriticalityReport,
     state = bench.checkpoint_state()
     rng = np.random.RandomState(seed)
     named, treedef = _tree.flatten_with_names(state)
+    if corrupt is None:
+        words = [report[name].device_words(leaf.device)
+                 for name, leaf in named]
+        packs = [mask_ops.pack(leaf.reshape(-1), w)[0]
+                 for (_, leaf), w in zip(named, words)]
+        flats = mask_ops.unpack_group(packs, words,
+                                      [leaf.numel() for _, leaf in named],
+                                      fill=0)
+        restored = [f.reshape(leaf.shape) for f, (_, leaf) in
+                    zip(flats, named)]
+        out = bench.resume(_tree.unflatten(treedef, restored))
+        return bench.verify(out, bench.reference())
     restored = []
     corrupted_any_critical = False
     for name, leaf in named:
         rep = report[name]
         flat = leaf.reshape(-1)
         n = flat.shape[0]
-        if corrupt is None:
-            packed, _ = mask_ops.pack(flat, rep.device_words(leaf.device))
-            flat = mask_ops.unpack(packed, rep.device_mask(leaf.device), n=n,
-                                   fill=0)
-        elif corrupt == "uncritical":
+        if corrupt == "uncritical":
             garbage = rng.uniform(-1e6, 1e6, size=n)
             if leaf.is_complex():
                 garbage = garbage + 1j * rng.uniform(-1e6, 1e6, size=n)

@@ -17,6 +17,15 @@ order, decaying through a < 1); bf16 2e-2 (the output's one rounding);
 the RG-LRU block 1e-5 of its largest output (f32, matmuls and the scan
 summed in another order).
 
+``lru_scan_chunked_ref``, the CPU model of the forward kernel's chunked
+order (zero-carry chunks, their carries chained from the first chunk to
+the last, each chunk again), is held against the plain version and
+against the reference's oracle and Pallas kernel (interpret) at chunk
+lengths 1, 7, 8 and 32, within 1e-5 of the largest |h| (f32: one extra
+rounding per chunk boundary); its first chunk is bit for bit the plain
+version's, and where h0 and a prefix of b are zero, or a is zero at a
+chunk boundary, its zeros are exact.
+
 ``lru_scan_backward_chunked_ref``, the CPU model of the backward kernel's
 chunked order (zero-carry chunks, then their carries from the last chunk to
 the first, then each chunk again), is held against autograd through the
@@ -45,7 +54,7 @@ from repro_torch.convert import state_from_numpy
 from repro_torch.kernels.lru_scan import kernel as K
 from repro_torch.kernels.lru_scan import ops
 from repro_torch.kernels.lru_scan.ref import (
-    lru_scan_backward_chunked_ref, lru_scan_ref)
+    lru_scan_backward_chunked_ref, lru_scan_chunked_ref, lru_scan_ref)
 from repro_torch.models import recurrent as rec
 
 # Small shapes: one intra-op thread each leaves the cores to the other
@@ -267,3 +276,89 @@ def test_chunked_backward_with_a_zero_at_a_chunk_boundary(chunk):
         torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
     # db just before the cut is dh there plus nothing carried across it
     assert torch.equal(got[1][:, chunk - 1], torch.from_numpy(dh)[:, chunk - 1])
+
+
+FWD_CHUNKS = (1, 7, 8, 32)
+
+
+def _fwd_case(T, h0):
+    """a, b, h0 (zeros where ``h0`` is False) as numpy f32 arrays, and the
+    port's a, b and h0 (None without it)."""
+    arrs = _inputs(2, T, 24, seed=T + 5, h0=True)
+    if not h0:
+        arrs[2] = np.zeros_like(arrs[2])
+    a, b, h0_t = _port(arrs)
+    return arrs, (a, b, h0_t if h0 else None)
+
+
+def _close(got, want):
+    """Within 1e-5 of the largest |h|: the chain's one rounding a chunk."""
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("T", CHUNK_T)
+@pytest.mark.parametrize("chunk", FWD_CHUNKS)
+@pytest.mark.parametrize("h0", [True, False], ids=["h0", "zeros"])
+def test_chunked_forward_matches_plain_version(T, chunk, h0):
+    _, (a, b, h0_t) = _fwd_case(T, h0)
+    want = lru_scan_ref(a, b, h0_t)
+    got = lru_scan_chunked_ref(a, b, h0_t, chunk)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    _close(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("T", CHUNK_T)
+@pytest.mark.parametrize("chunk", FWD_CHUNKS)
+@pytest.mark.parametrize("h0", [True, False], ids=["h0", "zeros"])
+def test_chunked_forward_matches_reference(T, chunk, h0):
+    """Against the reference's oracle and its Pallas kernel in interpret
+    mode (which takes zeros for a missing h0)."""
+    arrs, (a, b, h0_t) = _fwd_case(T, h0)
+    got = lru_scan_chunked_ref(a, b, h0_t, chunk).numpy()
+    ja, jb, jh0 = (jnp.asarray(x) for x in arrs)
+    _close(got, r_lru_scan_ref(ja, jb, jh0 if h0 else None))
+    _close(got, lru_scan_kernel(ja, jb, jh0, interpret=True))
+
+
+@pytest.mark.parametrize("T", [1, 31, 100])
+@pytest.mark.parametrize("chunk", FWD_CHUNKS)
+def test_chunked_forward_first_chunk_is_the_plain_version(T, chunk):
+    """The first chunk's carry in is h0 itself, and each step rounds
+    a h and + b as the plain version does: bit for bit, in f32 and bf16."""
+    for dtype in ("float32", "bfloat16"):
+        a, b, h0_t = _port(_inputs(2, T, 24, seed=T + 6, dtype=dtype))
+        got = lru_scan_chunked_ref(a, b, h0_t, chunk)
+        want = lru_scan_ref(a, b, h0_t)
+        assert torch.equal(got[:, :chunk], want[:, :chunk]), dtype
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 32])
+@pytest.mark.parametrize("zero_to", [1, 5, 64, 99])
+def test_chunked_forward_keeps_zeros_where_b_is_zero_up_to(chunk, zero_to):
+    """h0 zero and b zero up to step t: h is exactly 0 there (a chunk
+    from a zero carry gives c^ = 0, and the chain Q 0 + 0 = 0)."""
+    _, (a, b, _) = _fwd_case(100, False)
+    b = b.clone()
+    b[:, :zero_to] = 0.0
+    h = lru_scan_chunked_ref(a, b, None, chunk)
+    assert torch.count_nonzero(h[:, :zero_to]) == 0
+    assert torch.count_nonzero(h[:, zero_to:]) > 0
+
+
+@pytest.mark.parametrize("chunk", [7, 32])
+def test_chunked_forward_with_a_zero_at_a_chunk_boundary(chunk):
+    """a = 0 at the first step of a chunk cuts the carry there: from that
+    step on, h is what a walk from h = 0 gives, exactly as the plain walk
+    has it at that step."""
+    _, (a, b, h0_t) = _fwd_case(100, True)
+    a = a.clone()
+    a[:, chunk] = 0.0
+    a[:, 3 * chunk] = 0.0
+    got = lru_scan_chunked_ref(a, b, h0_t, chunk)
+    want = lru_scan_ref(a, b, h0_t)
+    _close(got.numpy(), want.numpy())
+    # h at the cut is b there, whatever came before
+    assert torch.equal(got[:, chunk], b[:, chunk])
+    assert torch.equal(got[:, 3 * chunk], b[:, 3 * chunk])

@@ -3,9 +3,10 @@
 On the CPU every op runs its kernel's plain version; the same inputs, made
 by numpy from a seed, go through ``repro.kernels.mask_pack.ops`` with
 ``use_kernel=False`` and, for finite f32 at a few tiles, through the raw
-Pallas kernels in interpret mode.  Equality is on bytes.  The port's K2
-and K4 take the mask as ``np.packbits`` words where the reference takes a
-bool mask; ``_mask`` makes both from one numpy mask.  The CUDA kernels
+Pallas kernels in interpret mode.  Equality is on bytes.  The port's K2,
+K4 and K5 take the mask as ``np.packbits`` words where the reference
+takes a bool mask; ``_mask`` and ``_words`` make both from one numpy
+mask.  The CUDA kernels
 themselves are held against the same plain versions on the card by
 ``chip_smoke.py`` (and by ``test_torch_rules.py``'s ``gpu`` case).
 """
@@ -313,9 +314,13 @@ def test_set_tail_bits_change_nothing(dtype, n):
 def test_ops_take_words_not_a_bool_mask():
     x = torch.ones(20)
     m = torch.ones(20, dtype=torch.bool)
+    p = torch.ones(1, 512)
     for call in (lambda: T.pack(x, m),
                  lambda: T.pack_group([x], [m], [20]),
                  lambda: T.mask_scatter(x, m, n=20),
+                 lambda: T.unpack(p, m, n=20),
+                 lambda: T.unpack_group([p, p], [T.mask_to_words(m), m],
+                                        [20, 20]),
                  lambda: T.pack(x, T.mask_to_words(m)[:2])):
         with pytest.raises(ValueError, match="np.packbits words"):
             call()
@@ -348,9 +353,16 @@ def _stand_in_kernels(monkeypatch, calls):
         calls.append("mask_scatter")
         return ref.mask_scatter_ref(payload, bits(words, n), fill)
 
+    def unpack_group(packs, words, ns, fill):
+        calls.append("unpack_group")
+        return [ref.unpack_blocks_ref(p.view(-1, 512), bits(w, n),
+                                      ref.fill_tensor(fill, p.dtype, "cpu"))
+                for p, w, n in zip(packs, words, ns)]
+
     monkeypatch.setattr(T, "_on_card", lambda *ts: True)
     monkeypatch.setattr(K, "pack_into", pack_into)
     monkeypatch.setattr(K, "mask_scatter", mask_scatter)
+    monkeypatch.setattr(K, "unpack_group", unpack_group)
     monkeypatch.setattr(ref, "expand_mask_bits", _widened)
 
 
@@ -405,6 +417,31 @@ def test_save_and_device_restore_never_widen_the_mask(tmp_path, monkeypatch,
         assert calls == ["pack", "pack", "mask_scatter", "mask_scatter"]
 
 
+@pytest.mark.parametrize("route", ["plain", "kernel"])
+def test_npb_restart_never_widens_the_mask(monkeypatch, route):
+    """The §IV-C restart (``verify_restart``, ``corrupt=None``) packs each
+    leaf from the report's resident words and rebuilds the program's
+    leaves with one ``unpack_group`` on the same words: no
+    ``device_mask`` and no ``expand_mask_bits``.  ``kernel`` runs the ops'
+    card branch with stand-in kernels (K2 a launch per leaf, K5 one)."""
+    from repro_torch.core import criticality
+    from repro_torch.npb import get_benchmark
+    from repro_torch.npb.common import verify_restart
+
+    bench = get_benchmark("lu", device="cpu")
+    rep = bench.scrutinize()
+    calls = []
+    if route == "kernel":
+        _stand_in_kernels(monkeypatch, calls)
+    monkeypatch.setattr(T, "expand_mask_bits", _widened)
+    monkeypatch.setattr(criticality.DeviceLeafReport, "device_mask",
+                        _widened)
+    monkeypatch.setattr(criticality.LeafReport, "device_mask", _widened)
+    assert verify_restart(bench, rep)
+    if route == "kernel":
+        assert calls == ["pack"] * len(rep.leaves) + ["unpack_group"]
+
+
 # --------------------------------------------------------------------------
 # K5: unpack, the inverse of the tiled pack
 # --------------------------------------------------------------------------
@@ -442,24 +479,75 @@ def _packed_tiles(n, dtype, m, seed):
 @pytest.mark.parametrize("frac", DENSITIES)
 @pytest.mark.parametrize("n", [1, 511, 513, (1 << 20) + 7])
 def test_unpack_matches_reference(dtype, frac, n):
-    m, jm, tm = _mask(n, frac, seed=n + 31)
+    m, jm, _ = _mask(n, frac, seed=n + 31)
     j, t = _packed_tiles(n, dtype, m, seed=n + 32)
+    w = _words(m)
     for fill in (0, 3):
         o_r = R.unpack(j, jm, n=n, fill=fill, use_kernel=False)
-        o_t = T.unpack(t, tm, n=n, fill=fill)
+        o_t = T.unpack(t, w, n=n, fill=fill)
         assert _b(o_t) == _b(o_r), fill
     # and the round trip through the port's own tiled pack
-    o_t = T.unpack(t, tm, n=n)
-    p_t, _ = T.pack(o_t, _words(m))
-    assert _b(T.unpack(p_t, tm, n=n)) == _b(o_t)
+    o_t = T.unpack(t, w, n=n)
+    p_t, _ = T.pack(o_t, w)
+    assert _b(T.unpack(p_t, w, n=n)) == _b(o_t)
 
 
 def test_unpack_refuses_a_short_pack():
     m = torch.ones(600, dtype=torch.bool)
+    w = T.mask_to_words(m)
     with pytest.raises(ValueError, match="does not hold"):
-        T.unpack(torch.zeros(1, 512), m, n=600)
-    with pytest.raises(ValueError, match="n=599"):
-        T.unpack(torch.zeros(2, 512), m, n=599)
+        T.unpack(torch.zeros(1, 512), w, n=600)
+    with pytest.raises(ValueError, match="590 elements"):
+        T.unpack(torch.zeros(2, 512), w, n=590)
+
+
+# unpack_group: leaves of mixed widths in one list (int32, f64,
+# complex128, bf16, bool), at n = 1, 511 and 513
+GROUP_DTYPES = ["int32", "float64", "complex128", "bfloat16", "bool"]
+
+
+@pytest.mark.parametrize("n", [1, 511, 513])
+@pytest.mark.parametrize("frac", DENSITIES)
+def test_unpack_group_matches_reference_and_each_leaf(n, frac):
+    """One ``unpack_group`` over leaves of every width gives, leaf by leaf,
+    the bytes of the reference's unpack and of the port's one-leaf
+    ``unpack``, at fill 0 and 3, with the words' tail bits set or not."""
+    leaves = []
+    for k, dtype in enumerate(GROUP_DTYPES):
+        size = max(1, n - k)             # ragged ends that differ by leaf
+        m, jm, _ = _mask(size, frac, seed=size + 41 + k)
+        j, t = _packed_tiles(size, dtype, m, seed=size + 42 + k)
+        w = _words(m)
+        tail = w.clone()
+        if size % 8:
+            tail[-1] |= (1 << (8 - size % 8)) - 1
+        leaves.append((size, jm, j, t, w, tail))
+    for fill in (0, 3):
+        for form in (4, 5):              # words, tail bits set
+            got = T.unpack_group([x[3] for x in leaves],
+                                 [x[form] for x in leaves],
+                                 [x[0] for x in leaves], fill=fill)
+            assert len(got) == len(leaves)
+            for (size, jm, j, t, w, _), o in zip(leaves, got):
+                assert o.shape == (size,) and o.dtype == t.dtype
+                assert _b(o) == _b(R.unpack(j, jm, n=size, fill=fill,
+                                            use_kernel=False))
+                assert _b(o) == _b(T.unpack(t, w, n=size, fill=fill))
+
+
+def test_unpack_group_edges():
+    """An empty list gives an empty list; an empty leaf gives an empty
+    tensor beside the others; lengths must agree."""
+    assert T.unpack_group([], [], []) == []
+    m = np.random.RandomState(5).rand(700) < 0.4
+    vals = torch.arange(1024, dtype=torch.float32).view(2, 512)
+    got = T.unpack_group([torch.zeros(0, 512), vals],
+                         [torch.zeros(0, dtype=torch.uint8), _words(m)],
+                         [0, 700])
+    assert got[0].shape == (0,) and got[1].shape == (700,)
+    assert _b(got[1]) == _b(T.unpack(vals, _words(m), n=700))
+    with pytest.raises(ValueError, match="length mismatch"):
+        T.unpack_group([vals], [_words(m)], [700, 1])
 
 
 def test_reference_unpack_kernel_poisons_a_tile():
@@ -481,7 +569,7 @@ def test_reference_unpack_kernel_poisons_a_tile():
     assert not np.isnan(poisoned[512:]).any()
     clean = np.asarray(R.unpack(packed, jnp.asarray(m), n=n,
                                 use_kernel=False))
-    ours = to_host(T.unpack(torch.from_numpy(np.array(packed)),
-                            torch.from_numpy(m), n=n))
+    ours = to_host(T.unpack(torch.from_numpy(np.array(packed)), _words(m),
+                            n=n))
     want = np.where(m, vals, np.float32(0))
     assert clean.tobytes() == ours.tobytes() == want.tobytes()

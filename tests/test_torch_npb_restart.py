@@ -4,8 +4,9 @@ The matrix of ``tests/test_npb_paper.py:66-89`` under the port's AD masks:
 a restart from the critical elements alone verifies, garbage in every
 uncritical element changes nothing, and corrupting critical elements
 breaks verification (every program but IS, whose state is all integer).
-The restart rebuilds each leaf through the tiled pack (K2) and the unpack
-(K5) on the state's device; here their plain versions.  Each program's
+The restart packs each leaf through the tiled pack (K2) and rebuilds all
+of a program's leaves with one grouped unpack (K5) from the masks' words
+on the state's device; here their plain versions.  Each program's
 state also goes through a scrutinized ``CheckpointManager`` save and a
 restore into fresh tensors, and the resumed run verifies.
 """
@@ -39,9 +40,10 @@ def reports():
 @pytest.mark.parametrize("name", NAMES)
 def test_restart_with_reduced_checkpoint(reports, name, monkeypatch):
     """§IV-C: restoring only critical elements reproduces the output; every
-    leaf goes through ``ops.pack`` and ``ops.unpack`` once."""
+    leaf goes through ``ops.pack`` once, and the program's leaves through
+    one ``ops.unpack_group``."""
     bench, rep = reports[name]
-    calls = {"pack": 0, "unpack": 0}
+    calls = {"pack": 0, "unpack_group": 0, "unpack": 0}
     for op in calls:
         real = getattr(mask_ops, op)
 
@@ -50,7 +52,8 @@ def test_restart_with_reduced_checkpoint(reports, name, monkeypatch):
             return _real(*a, **k)
         monkeypatch.setattr(mask_ops, op, counted)
     assert verify_restart(bench, rep)
-    assert calls == {"pack": len(rep.leaves), "unpack": len(rep.leaves)}
+    assert calls == {"pack": len(rep.leaves), "unpack_group": 1,
+                     "unpack": 0}
 
 
 @pytest.mark.parametrize("name", NAMES)

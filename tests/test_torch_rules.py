@@ -30,7 +30,9 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.lru_scan import kernel as LK
 from repro_torch.kernels.lru_scan import ops as lru_ops
-from repro_torch.kernels.lru_scan.ref import lru_scan_ref
+from repro_torch.kernels.lru_scan.ref import (FWD_CHUNK,
+                                              lru_scan_chunked_ref,
+                                              lru_scan_ref)
 from repro_torch.kernels.mask_pack import kernel as K
 from repro_torch.kernels.mask_pack import ops, ref
 from repro_torch.models import init_params
@@ -156,8 +158,8 @@ def _fa_backward_call():
                               torch.zeros(8, dtype=torch.uint8), 2048)),
     (K, lambda: K.mask_scatter(torch.ones(8), torch.ones(1, dtype=torch.uint8),
                                8, torch.tensor(0.0))),
-    (K, lambda: K.unpack(torch.ones(512), torch.ones(8, dtype=torch.bool),
-                         torch.tensor(0.0))),
+    (K, lambda: K.unpack_group([torch.ones(512)],
+                               [torch.ones(1, dtype=torch.uint8)], [8])),
     (FK, _fa_call),
     (FK, _fa_backward_call),
     (LK, lambda: LK.lru_scan(torch.ones(1, 3, 2), torch.ones(1, 3, 2))),
@@ -179,7 +181,7 @@ def test_kernel_wrappers_refuse_host_tensors(mod, call):
     lambda t: ops.mask_scatter(t, torch.ones(1, dtype=torch.uint8,
                                              device="meta"), n=8),
     lambda t: ops.delta_encode(t, t),
-    lambda t: ops.unpack(t.reshape(1, 8), torch.ones(8, dtype=torch.bool,
+    lambda t: ops.unpack(t.reshape(1, 8), torch.ones(1, dtype=torch.uint8,
                                                      device="meta"),
                          n=8, block=8),
 ], ids=["threshold_bitpack", "pack", "mask_scatter", "delta_encode",
@@ -216,7 +218,9 @@ def test_plain_versions_count_no_launches():
     ops.pack_group([x], [w], [int(m.sum())])
     ops.mask_scatter(x[m], w, n=3000)
     ops.delta_encode(x, x)
-    ops.unpack(ops.pack(x, w)[0], m, n=3000)
+    ops.unpack(ops.pack(x, w)[0], w, n=3000)
+    ops.unpack_group([ops.pack(x, w)[0], ops.pack(x[:7], w[:1])[0]],
+                     [w, w[:1]], [3000, 7])
     q = x[:2400].reshape(1, 20, 4, 30)
     live = q.clone().requires_grad_()
     fa_ops.flash_attention(live, q[:, :, :2], q[:, :, :2], window=5,
@@ -356,7 +360,9 @@ def test_pack_and_scatter_from_words_on_the_card(card, dtype, frac, n):
 @pytest.mark.parametrize("n", [1, 511, 513, 5003])
 def test_unpack_matches_plain_version_on_the_card(card, dtype, n):
     """K5 bit for bit against ``unpack_blocks_ref``, ±inf, NaN and -0.0
-    among the packed values, fill 0 and 1, the ragged last tile."""
+    among the packed values, fill 0 and 1, the ragged last tile, from the
+    mask's words as packed, with the tail bits set and at an odd address,
+    and the packed tiles at an odd element address; one launch each."""
     g = torch.Generator(device=card).manual_seed(n)
     m = torch.rand(n, generator=g, device=card) < 0.3
     nb = -(-n // 512)
@@ -368,16 +374,54 @@ def test_unpack_matches_plain_version_on_the_card(card, dtype, n):
         if dtype != torch.int32:
             p[:, :4] = torch.tensor([float("inf"), float("-inf"),
                                      float("nan"), -0.0]).to(dtype)
-    for fill in (0, 1):
-        before = K.LAUNCHES["unpack"]
-        got = ops.unpack(p, m, n=n, fill=fill)
-        assert K.LAUNCHES["unpack"] == before + 1
-        assert _same_bytes(got, ref.unpack_blocks_ref(p, m, fill))
+    w = ops.mask_to_words(m)
+    planted = w.clone()
+    planted[-1] |= (1 << (8 - n % 8)) - 1 if n % 8 else 0
+    odd = torch.empty(w.shape[0] + 1, dtype=torch.uint8, device=card)[1:]
+    odd.copy_(planted)
+    p_odd = torch.empty(p.numel() + 1, dtype=dtype, device=card)[1:]
+    p_odd.copy_(p.reshape(-1))
+    for words, packed in ((w, p), (planted, p), (odd, p_odd.view(nb, 512))):
+        for fill in (0, 1):
+            before = K.LAUNCHES["unpack"]
+            got = ops.unpack(packed, words, n=n, fill=fill)
+            assert K.LAUNCHES["unpack"] == before + 1
+            assert _same_bytes(got, ref.unpack_blocks_ref(p, m, fill))
+
+
+@pytest.mark.gpu
+def test_unpack_group_matches_plain_version_on_the_card(card):
+    """K5 over 70 leaves of every width (f16, bf16, f32, f64, complex128,
+    int32, bool) at ragged n: three launches (32 leaves a launch), each
+    leaf's bytes those of the plain version and of its own ``unpack``."""
+    g = torch.Generator(device=card).manual_seed(70)
+    dtypes = [torch.float16, torch.bfloat16, torch.float32, torch.float64,
+              torch.complex128, torch.int32, torch.bool]
+    packs, words, ns, masks = [], [], [], []
+    for k in range(70):
+        dt, n = dtypes[k % len(dtypes)], 1 + 97 * k
+        nb = -(-n // 512)
+        m = torch.rand(n, generator=g, device=card) < 0.3
+        p = (torch.rand((nb, 512), generator=g, device=card) < 0.5
+             if dt == torch.bool else
+             (torch.randn((nb, 512), generator=g, device=card,
+                          dtype=torch.float64) * 100).to(dt))
+        packs.append(p)
+        words.append(ops.mask_to_words(m))
+        ns.append(n)
+        masks.append(m)
+    before = K.LAUNCHES["unpack"]
+    got = ops.unpack_group(packs, words, ns, fill=1)
+    assert K.LAUNCHES["unpack"] == before + 3
+    for p, w, n, m, o in zip(packs, words, ns, masks, got):
+        assert _same_bytes(o, ref.unpack_blocks_ref(p, m, 1))
+        assert _same_bytes(o, ops.unpack(p, w, n=n, fill=1))
 
 
 @pytest.mark.gpu
 def test_npb_restart_on_the_card(card):
-    """BT's §IV-C restart on the card goes through K1, K2 and K5."""
+    """BT's §IV-C restart on the card goes through K1, K2 (a launch per
+    leaf) and K5 (one launch for the program)."""
     K.reset_launches()
     bench = get_benchmark("bt")
     assert bench.device.type == "cuda"
@@ -386,7 +430,8 @@ def test_npb_restart_on_the_card(card):
     assert verify_restart(bench, rep)
     assert not verify_restart(bench, rep, corrupt="critical")
     assert K.LAUNCHES["threshold_bitpack"] > 0
-    assert K.LAUNCHES["pack"] == K.LAUNCHES["unpack"] == 2
+    assert K.LAUNCHES["pack"] == len(rep.leaves) == 2
+    assert K.LAUNCHES["unpack"] == 1
 
 
 # (B, Tq, Tk, H, K, D, Dv, window, causal, cap): the serving slice's shapes
@@ -500,6 +545,31 @@ def test_lru_scan_backward_is_deterministic_on_the_card(card, dtype):
     first = LK.lru_scan_backward(a, h, h0, dh)
     again = LK.lru_scan_backward(a, h, h0, dh)
     assert all(_same_bytes(x, y) for x, y in zip(first, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", LRU_CARD_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_lru_scan_forward_chunks_on_the_card(card, dtype, case):
+    """K7's forward in its chunked order: bit for bit
+    ``lru_scan_chunked_ref`` and, over each row's first chunk, the plain
+    version; within the tolerance of the plain version; the same bytes
+    from two launches."""
+    B, T, R, with_h0 = case
+    g = torch.Generator(device=card).manual_seed(3)
+    a = torch.rand((B, T, R), generator=g, device=card).to(dtype)
+    b = torch.randn((B, T, R), generator=g, device=card).to(dtype)
+    h0 = (torch.randn((B, R), generator=g, device=card).to(dtype)
+          if with_h0 else None)
+    got = LK.lru_scan(a, b, h0)
+    assert _same_bytes(got, LK.lru_scan(a, b, h0))
+    assert _same_bytes(got[:, :FWD_CHUNK],
+                       lru_scan_ref(a, b, h0)[:, :FWD_CHUNK])
+    assert _same_bytes(got, lru_scan_chunked_ref(a, b, h0))
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), lru_scan_ref(a, b, h0).float(),
+                               atol=tol, rtol=tol)
 
 
 @pytest.mark.gpu
