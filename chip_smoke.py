@@ -6,16 +6,21 @@ Builds the CUDA kernels of ``src/repro_torch/csrc`` (one nvcc per source,
 all started together) and checks each against its plain PyTorch version on
 the card, then drives the port's four paths: the paper's pipeline
 (scrutinize → device-packed save → delta chain → device restore) at a
-≈2.5 GiB state; the serving path (phi4-mini-3.8b at full width and depth:
-prefill through flash attention, decode, KV scrutiny, base + delta
-snapshots, restore, exact continuation); the paper's NPB evaluation (the
-eight class-S programs: AD scrutiny in f64, the Table II counts, the
-§IV-C restart through the tiled pack and one unpack launch a program,
-scrutinized saves and restores that verify, Table III); and the training path
-(recurrentgemma-2b at full width, depth cut to fit: train steps through
-the RG-LRU scan and flash attention forward and backward, AD scrutiny of
-the training state, scrutinized and full saves, restores and
-continuations, and the launcher's own smoke run).  It checks the
+≈2.5 GiB state, with a manager that re-scrutinizes at every save (the
+unchanged report keeps the chain) and a precision-tiered round trip; the
+serving path (phi4-mini-3.8b at full width and depth: prefill through
+flash attention, decode, KV scrutiny, base + delta snapshots, restore,
+exact continuation); the paper's NPB evaluation (the eight class-S
+programs: AD scrutiny in f64, participation over the traced aten graph
+and its Table II, FT y included, the static analyzer's soundness check
+and the pruned sweep, the §IV-C restart from both masks through the tiled
+pack and one unpack launch a restart, scrutinized saves and restores that
+verify, Table III); and the training path (recurrentgemma-2b at full
+width, depth cut to fit: train steps through the RG-LRU scan and flash
+attention forward and backward, AD scrutiny of the training state, the
+scrutinized save and the save with no report (device clones), restores
+and continuations, the launcher's own smoke run, and its resume traced
+with K6 and K7 as custom-op nodes).  It checks the
 hardware-independent byte counts of the reference bench state and times
 every kernel.  Any failed check raises and ends the run with a non-zero
 exit; the second-to-last line is the kernels JSON, the last the device
@@ -439,20 +444,24 @@ def lru_tol(dtype: torch.dtype) -> float:
 
 
 def lru_plain_grads(a, b, h0, dh):
-    """The plain version's output and autograd's gradient through it."""
-    live = [t.detach().clone().requires_grad_() for t in
-            ([a, b] + ([] if h0 is None else [h0]))]
+    """The plain version's output and its gradient, by ``torch.func.vjp``,
+    which also runs inside a custom op's implementation (below autograd,
+    where KernelCheck holds the kernels)."""
+    ins = [t.detach() for t in [a, b] + ([] if h0 is None else [h0])]
     with torch.enable_grad():
-        h = lru_scan_ref(*live)
-        return h.detach(), torch.autograd.grad(h, live, dh)
+        h, vjp = torch.func.vjp(lru_scan_ref, *ins)
+        return h.detach(), vjp(dh)
 
 
 def fa_plain_grads(q, k, v, do, **kw):
-    """flash_attention_ref's output and autograd's gradient through it."""
-    live = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    """flash_attention_ref's output and its gradient, as
+    :func:`lru_plain_grads`."""
+    def ref(q, k, v):
+        return flash_attention_ref(q, k, v, **kw)
+
     with torch.enable_grad():
-        o = flash_attention_ref(*live, **kw)
-        return o.detach(), torch.autograd.grad(o, live, do)
+        o, vjp = torch.func.vjp(ref, *(t.detach() for t in (q, k, v)))
+        return o.detach(), vjp(do)
 
 
 # K7 cases: B, T, R, h0 and dtype.  B = 2 with T around the backward's
@@ -712,6 +721,11 @@ def phase_main_path(root: str):
     r["w"][idx] += 1.0
     check(not torch.equal(resume(r), out), "critical corruption went unseen")
     mgr.close()
+    del r
+    rescrutiny = rescrutiny_chain(os.path.join(root, "rescrutiny"), state,
+                                  resume)
+    tiers = tiered_round_trip(os.path.join(root, "tiered"), state, sel_w,
+                              sel_h)
     launches = {k: K.LAUNCHES[k] for k in CKPT_KERNELS}
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main path was never launched: {launches}")
@@ -724,8 +738,96 @@ def phase_main_path(root: str):
           f"d2h_bytes={stats1['d2h_bytes']} h2d_bytes={rst['h2d_bytes']} "
           f"full_bytes={full} delta chunks step2={changed2} step3={changed3}")
     print(f"main path: save stages {json.dumps(dict(stats1['stages']))}")
+    print(f"main path: re-scrutiny every save (rescrutinize_every=1): "
+          f"{json.dumps(rescrutiny)}")
+    print(f"main path: tiered round trip (TIERED_BF16, {N_TIERED} elements "
+          f"of w and h): {json.dumps(tiers)}")
     print(f"main path: launches {json.dumps(launches)}")
     return launches, {"state": state, "sel_w": sel_w, "rep": rep}
+
+
+def rescrutiny_chain(root: str, state, resume) -> dict:
+    """A manager that re-scrutinizes at every save: the second scrutiny
+    finds the same masks, so ``DeviceReport.reuse_unchanged`` hands back
+    the identical report object and the chain stays a delta."""
+    from repro_torch import (CheckpointManager, Level, ScrutinyConfig,
+                             scrutinize)
+
+    def scrutiny_fn(s):
+        return scrutinize(resume, s, config=ScrutinyConfig(probes=4),
+                          device=DEV)
+
+    with CheckpointManager([Level(root, keep_n=2, max_chain=2)],
+                           scrutiny_fn=scrutiny_fn, rescrutinize_every=1,
+                           device=DEV) as mgr:
+        mgr.save(1, state, block=True)
+        first = mgr._report
+        mgr.save(2, state, block=True)
+        st = mgr.last_save_stats
+        kind = st["levels"][root]["kind"]
+        sc = mgr.last_scrutiny_stats
+        check(mgr._report is first and kind == "delta"
+              and sc["reused_leaves"] == len(first.leaves)
+              and sc["changed_leaves"] == 0,
+              f"an unchanged re-scrutiny must keep the report and the "
+              f"chain: same object {mgr._report is first}, kind {kind}, "
+              f"reused {sc.get('reused_leaves')}")
+    return {"kind": kind, "reused_leaves": sc["reused_leaves"],
+            "changed_leaves": sc["changed_leaves"],
+            "delta_bytes": st["levels"][root]["delta_bytes"],
+            "blocked_s": st["blocked_s"]}
+
+
+N_TIERED = 1 << 22           # the tiered save encodes on the host
+
+
+def tiered_round_trip(root: str, state, sel_w, sel_h) -> dict:
+    """A save with precision tiers (half the critical elements native, the
+    rest bf16) takes the host engine on the card, by design, and restores
+    through the host expand within the bf16 tier's error (1/64 relative,
+    ``tests/test_checkpoint.py``'s bound); uncritical elements come back
+    as the fill."""
+    from repro_torch import CheckpointManager, Level, scrutinize
+    from repro_torch.core import TIERED_BF16
+
+    n = N_TIERED
+    small = {"w": state["w"][:n].clone(), "h": state["h"][:n].clone(),
+             "step": state["step"]}
+    # graded weights: the elements' sensitivities spread over the tiers
+    fw = sel_w[:n].float() * torch.linspace(0.5, 2.0, n, device=DEV)
+    fh = sel_h[:n].float()
+
+    def resume(s):
+        return (s["w"] * fw).sum() + (s["h"].float() * fh).sum()
+
+    rep = scrutinize(resume, small, device=DEV)
+    with CheckpointManager([Level(root, keep_n=1)], precision=TIERED_BF16,
+                           scrutiny_fn=lambda s: rep, device=DEV) as mgr:
+        mgr.save(1, small, block=True)
+        st = mgr.last_save_stats
+        _, back = mgr.restore({k: torch.empty_like(v)
+                               for k, v in small.items()})
+    check(st["engine"] == "host" and st["host_reason"] == "tiered",
+          f"a tiered save must take the host engine: {st['engine']}, "
+          f"{st['host_reason']}")
+    errs = {}
+    for name, sel in (("w", sel_w[:n]), ("h", sel_h[:n])):
+        want = small[name][sel].float()
+        got = back[name][sel].float()
+        errs[name] = float(((got - want).abs()
+                            / want.abs().clamp_min(1e-6)).max())
+        check(errs[name] < 1 / 64 and not bool(back[name][~sel].any()),
+              f"tiered {name}: relative error {errs[name]} >= 1/64, or an "
+              f"uncritical element is not the fill")
+    # w's less sensitive half went to bf16 (h is bf16 already: exact)
+    check(errs["w"] > 0 and errs["h"] == 0,
+          f"tiered: w must carry a bf16 tier and h come back exact: {errs}")
+    check(same_bytes(back["step"], small["step"]), "tiered step differs")
+    disk = _dir_bytes(os.path.join(root, "step_1"))
+    return {"engine": st["engine"], "host_reason": st["host_reason"],
+            "blocked_s": st["blocked_s"], "max_rel_err": errs,
+            "disk_bytes": disk,
+            "state_bytes": sum(v.nbytes for v in small.values())}
 
 
 # ----------------------------------------------------------------------------
@@ -998,7 +1100,9 @@ def phase_serving(root: str):
 
     print(f"serving: prefill_s={prefill_s:.4f} decode_step_ms(median of "
           f"{PRE_STEPS})={float(np.median(decode_ms)):.3f} "
-          f"scrutiny_s={scrutiny_s:.4f} blocked_s={stats1['blocked_s']:.4f} "
+          f"scrutiny_s={scrutiny_s:.4f} (reads pre-pass "
+          f"{rep.stats['prepass_reads_s']:.4f}) "
+          f"blocked_s={stats1['blocked_s']:.4f} "
           f"save_s={save_s:.4f} restore_s={restore_s:.4f}")
     print(f"serving: engine state {state_bytes} B; cache {cache_frac:.4%} "
           f"critical (slot < {crit_slots}); disk(step 1) {disk} B "
@@ -1108,6 +1212,37 @@ class KernelCheck:
     def __exit__(self, *exc):
         for mod, name in self._WRAPPED:
             setattr(mod, name, self._real[name])
+
+
+def traced_custom_ops() -> dict:
+    """The launcher's resume (``make_resume_fn``) traced on the card at the
+    smoke preset: K6 and K7 are one custom-op node a call, which the
+    participation walk gives the any→all rule, never a tensor it cannot
+    attribute; participation then keeps every parameter."""
+    from repro_torch import get_config
+    from repro_torch.core import participation, traced_step
+    from repro_torch.launch import train as launch
+    from repro_torch.train.optim import OptConfig
+
+    cfg = get_config(TRAIN_ARCH).reduced()
+    state = launch.build_state(cfg, OptConfig(kind="adamw"), 2, 64,
+                               device=DEV)
+    resume = launch.make_resume_fn(cfg)
+    ts = traced_step(resume, state, device=DEV)
+    nodes = {}
+    for n in ts.gm.graph.nodes:
+        name = str(n.target)
+        if n.op == "call_function" and name.startswith("repro_torch."):
+            nodes[name] = nodes.get(name, 0) + 1
+    check(nodes.get("repro_torch.flash_attention.default", 0) > 0
+          and nodes.get("repro_torch.lru_scan.default", 0) > 0,
+          f"the traced resume holds no K6/K7 custom-op node: {nodes}")
+    rep = participation(resume, state, device=DEV)
+    for name, leaf in rep.leaves.items():
+        if name.startswith("params/"):
+            check(leaf.all_critical, f"participation: {name} not all "
+                  "critical")
+    return nodes
 
 
 def _zeroed(fn, index):
@@ -1267,23 +1402,32 @@ def phase_training(root: str):
                                scrutiny_fn=scrutiny_fn, device=DEV) as mgr:
             t0 = time.perf_counter()
             mgr.save(SAVE_STEP, state, block=False)
-            blocked = mgr.last_save_stats["blocked_s"]
+            first = mgr.last_save_stats
             stats = mgr.wait()
             torch.cuda.synchronize()
-            saves[tag] = {"blocked_s": blocked,
+            saves[tag] = {"blocked_s": first["blocked_s"],
                           "save_s": time.perf_counter() - t0,
+                          "engine": first["engine"],
+                          "host_reason": first["host_reason"],
                           "d2h": stats["d2h_bytes"],
                           "disk": _dir_bytes(os.path.join(
                               root, tag, f"step_{SAVE_STEP}"))}
 
     saves = {}
+    torch.cuda.reset_peak_memory_stats()
     save("full", None)          # first: its clone of the whole state and
+    full_save_peak = torch.cuda.max_memory_allocated()
     torch.cuda.empty_cache()    # the scrutiny never hold memory together
+    check(saves["full"]["engine"] == "device"
+          and saves["full"]["host_reason"] is None,
+          f"the save with no report must take dev_raw on the card, not a "
+          f"host snapshot: {saves['full']}")
     resume = launch.make_resume_fn(cfg)
     peak_before = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     rep, scrutiny_s = synced(lambda: scrutinize(resume, state, device=DEV))
     scrutiny_peak = torch.cuda.max_memory_allocated()
+    reads_s = rep.stats["prepass_reads_s"]
     crit = {"params": 0, "moments": 0, "other": 0}
     for name, leaf in rep.leaves.items():
         if name.startswith(("opt/mu/", "opt/nu/")):
@@ -1316,11 +1460,13 @@ def phase_training(root: str):
     torch.cuda.empty_cache()
 
     def restore(tag):
+        k4_before = K.LAUNCHES["mask_scatter"]
         with CheckpointManager([Level(os.path.join(root, tag), keep_n=1)],
                                device=DEV) as mgr:
             (step, st), restore_s = synced(lambda: mgr.restore(like))
             saves[tag]["restore_s"] = restore_s
             saves[tag]["h2d"] = mgr.last_restore_stats["h2d_bytes"]
+            saves[tag]["k4"] = K.LAUNCHES["mask_scatter"] - k4_before
         check(step == SAVE_STEP, f"{tag} restore gave step {step}")
         for n, t in _tree.flatten_with_names(st)[0]:
             if n in keep:
@@ -1340,16 +1486,25 @@ def phase_training(root: str):
     del st
     torch.cuda.empty_cache()
     # scrutinized restore: parameters and integer leaves exact, the moments
-    # the fill; the next loss bitwise, the later ones as they come
+    # the fill; the next loss bitwise, the later ones as they come.  The
+    # moments (no critical element) send no mask bits and launch no K4:
+    # H2D is exactly the kept leaves' bytes
+    kept_bytes = sum(t.nbytes for t in keep.values())
     st = restore("scrutinized")
+    check(saves["scrutinized"]["h2d"] == kept_bytes
+          and saves["scrutinized"]["k4"] == 0,
+          f"scrutinized restore: h2d {saves['scrutinized']['h2d']} B, not "
+          f"the kept leaves' {kept_bytes} B, or {saves['scrutinized']['k4']}"
+          f" K4 launches for leaves with no critical element")
     scr = _train(step_fn, cfg, st, TRAIN_STEPS - SAVE_STEP)
     check(scr[0] == want[0], f"scrutinized restore: step {SAVE_STEP + 1} "
           f"loss {scr[0]!r} is not the straight run's {want[0]!r}")
     gap = [s_ - w for s_, w in zip(scr, want)]
     del st, keep, like
     torch.cuda.empty_cache()
-    peak = max(peak_before, scrutiny_peak, save_peak,
+    peak = max(peak_before, full_save_peak, scrutiny_peak, save_peak,
                torch.cuda.max_memory_allocated())
+    custom_ops = traced_custom_ops()
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the training path was never launched: {launches}")
 
@@ -1382,12 +1537,15 @@ def phase_training(root: str):
           f"{json.dumps(dists)}; each planted fault breaks the bound; "
           f"losses {json.dumps(grad_losses)}")
     print(f"training: scrutiny of the state after step {SAVE_STEP}: "
-          f"scrutiny_s={scrutiny_s:.4f}; parameters {crit['params']} "
+          f"scrutiny_s={scrutiny_s:.4f} (reads pre-pass "
+          f"{reads_s:.4f}); parameters {crit['params']} "
           f"elements all critical, moments {crit['moments']} elements 0 "
           f"critical, integer leaves {crit['other']} elements critical")
     for tag, sv in saves.items():
-        print(f"training: {tag} save: blocked_s={sv['blocked_s']:.4f} "
-              f"save_s={sv['save_s']:.4f} restore_s={sv['restore_s']:.4f}; "
+        print(f"training: {tag} save: engine {sv['engine']} (host reason "
+              f"{sv['host_reason']}) blocked_s={sv['blocked_s']:.4f} "
+              f"save_s={sv['save_s']:.4f} restore_s={sv['restore_s']:.4f} "
+              f"(K4 launches {sv['k4']}); "
               f"disk {sv['disk']} B ({sv['disk'] / state_bytes:.4%}), d2h "
               f"{sv['d2h']} B ({sv['d2h'] / state_bytes:.4%}), h2d "
               f"{sv['h2d']} B ({sv['h2d'] / state_bytes:.4%}) of the state")
@@ -1398,7 +1556,11 @@ def phase_training(root: str):
           f"{json.dumps(gap)} (the moments were dropped)")
     print(f"training: launcher smoke (first loss, loss at 30, loss at 40 "
           f"after --resume, seconds of the first run) {json.dumps(smoke)}")
+    print(f"training: the launcher's resume traced on the card (smoke "
+          f"{TRAIN_ARCH}): custom-op nodes {json.dumps(custom_ops)}")
     print(f"training: peak device memory {peak / 2 ** 30:.2f} GiB (during "
+          f"the full save, dev_raw clones of every leaf, "
+          f"{full_save_peak / 2 ** 30:.2f} GiB; during "
           f"the scrutiny {scrutiny_peak / 2 ** 30:.2f} GiB, during the "
           f"scrutinized save {save_peak / 2 ** 30:.2f} GiB, held after it "
           f"with the report alive {save_held / 2 ** 30:.2f} GiB: the save "
@@ -1427,6 +1589,9 @@ NPB_TABLE2 = {
     "ep": {"q": (0, 10), "sx": (0, 1), "sy": (0, 1)},
     "is": {"key_array": (0, 65536), "bucket_ptrs": (0, 512)},
 }
+# participation (structural reads) gives Table II exactly, FT(y) included:
+# 4,096 of 266,240 (the kx = 64 plane), independent of the FFT's round-off
+NPB_PART_TABLE2 = dict(NPB_TABLE2, ft={"y": (4096, 266240), "sums": (3, 6)})
 # Table III, paper_storage_saved in %: the paper's numbers, within 0.5
 NPB_TABLE3 = {"bt": 14.8, "sp": 14.8, "mg": 19.1, "cg": 0.1, "lu": 15.7}
 REF_FT_Y_CRITICAL = 56176    # the reference's AD count on the CPU
@@ -1484,6 +1649,7 @@ def phase_npb(root: str):
         if name != "is":         # IS holds no float element to corrupt
             check(not verify_restart(bench, rep, corrupt="critical"),
                   f"npb {name}: corrupted critical elements verified")
+        analysis = npb_static(bench, state, rep)
         with CheckpointManager([Level(os.path.join(root, name), keep_n=1)],
                                scrutiny_fn=lambda s: rep, save_mode="device",
                                restore_mode="device", device=DEV) as mgr:
@@ -1508,7 +1674,12 @@ def phase_npb(root: str):
         print(summary_table(rep, f"{name} (Table II)"))
         print(storage_table(rep, f"{name} (Table III)"))
         full = sum(v.nbytes for v in state.values())
-        print(f"npb {name}: scrutiny_s={scrutiny_s:.4f} "
+        print(summary_table(analysis.pop("report"),
+                            f"{name} (Table II, participation)"))
+        print(f"npb {name}: participation, static analysis and the pruned "
+              f"sweep {json.dumps(analysis)}")
+        print(f"npb {name}: scrutiny_s={scrutiny_s:.4f} (reads pre-pass "
+              f"{rep.stats['prepass_reads_s']:.4f}) "
               f"restart_s={restart_s:.4f} save_s={save_s:.4f} "
               f"restore_s={restore_s:.4f} full_bytes={full} "
               f"d2h_bytes={saved['d2h_bytes']} h2d_bytes={h2d} "
@@ -1520,12 +1691,60 @@ def phase_npb(root: str):
     launches = dict(K.LAUNCHES)
     for k in ("threshold_bitpack", "pack", "mask_scatter", "unpack"):
         check(launches[k] > 0, f"npb: {k} was never launched: {launches}")
-    check(launches["unpack"] == len(k5_inputs),
+    check(launches["unpack"] == 2 * len(k5_inputs),
           f"npb: {launches['unpack']} K5 launches for {len(k5_inputs)} "
-          f"programs, not one a program")
+          f"programs, not one a program for each of the AD and the "
+          f"participation restarts")
     print(f"npb: eight programs in {seconds:.1f} s; launches "
           f"{json.dumps(launches)}")
     return launches, k5_inputs
+
+
+def npb_static(bench, state, ad) -> dict:
+    """Participation on the card: Table II exactly (FT y included), AD ⊆
+    participation on every leaf, and the §IV-C matrix from its masks; the
+    static analyzer holds the AD report (AD ⊆ static); the sweep pruned by
+    it gives the AD masks bit for bit."""
+    from repro_torch import ScrutinyConfig, scrutinize
+    from repro_torch.analysis import analyze_static, verify_soundness
+    from repro_torch.npb.common import verify_restart
+
+    name = bench.name
+    part, part_s = synced(bench.participation)
+    for var, want in NPB_PART_TABLE2[name].items():
+        got = (part[var].uncritical, part[var].total)
+        check(got == want, f"npb {name}({var}): participation {got}, Table "
+              f"II {want}")
+    for var, leaf in part.leaves.items():
+        check(not bool((ad[var].device_mask().cpu().numpy()
+                        & ~leaf.mask).any()),
+              f"npb {name}({var}): AD-critical outside participation")
+    check(verify_restart(bench, part)
+          and verify_restart(bench, part, corrupt="uncritical"),
+          f"npb {name}: the restart from participation masks failed")
+    if name != "is":
+        check(not verify_restart(bench, part, corrupt="critical"),
+              f"npb {name}: corrupted critical elements verified "
+              f"(participation)")
+    static, static_s = synced(lambda: analyze_static(bench.resume, state,
+                                                     device=DEV))
+    sound = verify_soundness(ad, static)
+    check(sound.ok, f"npb {name}: soundness {sound}")
+    pruned, pruned_s = synced(lambda: scrutinize(
+        bench.resume, state, config=ScrutinyConfig(static_prune=True),
+        device=DEV))
+    for var, leaf in ad.leaves.items():
+        check(torch.equal(pruned[var].device_words(), leaf.device_words()),
+              f"npb {name}({var}): the pruned sweep's mask differs")
+    return {"report": part, "participation_s": round(part_s, 4),
+            "static_s": round(static_s, 4),
+            "pruned_scrutiny_s": round(pruned_s, 4),
+            "soundness_checked_leaves": sound.checked_leaves,
+            "static_pruned_elements":
+                pruned.stats.get("static_pruned_elements", 0),
+            "participation_uncritical": {
+                var: [leaf.uncritical, leaf.total]
+                for var, leaf in part.leaves.items()}}
 
 
 # ----------------------------------------------------------------------------

@@ -22,26 +22,39 @@ asynchronous save engine** (port of ``repro.checkpoint.manager``).
   The "host" engine (CPU tensors) specializes the same pipeline: stage 1
   copies each leaf to host memory and the pack is a vectorized numpy
   gather on the writer side.  On-disk bytes are identical across engines
-  and to the reference package's.
+  and to the reference package's.  A save with precision tiers takes the
+  host engine on the card too, as in the reference: the tiers are encoded
+  from host magnitudes (``last_save_stats["host_reason"] == "tiered"``).
 
 - **Snapshot isolation**: torch tensors are mutable, so the snapshot is
   taken explicitly before ``save(block=False)`` returns.  Scrutinized
   leaves are packed by stage 1 into a fresh payload buffer on the caller's
   current stream — stream order guarantees the pack reads the bytes as
   they were at ``save()``.  Leaves saved whole on the device path
-  (``dev_raw``: unscrutinized or all-critical) are ``clone()``d at
-  ``save()``, which costs device memory for those leaves only.  The host
-  engine copies every leaf synchronously.  A caller that mutates the state
+  (``dev_raw``: all-critical, or every leaf of a save with no report) are
+  ``clone()``d at ``save()``, which costs device memory for those leaves
+  only (a second copy of the whole state for an unscrutinized save); their
+  D2H runs on the writer's side.  The host engine copies every leaf
+  synchronously.  A caller that mutates the state
   on *another* stream must synchronize that stream with the current one
   before calling ``save()``.
 
 - **Async**: per level at most one write is in flight (double buffering);
-  ``close()``/``wait()`` drain and surface writer errors exactly once.
+  ``io_threads`` (default: scales with the level shard counts) bounds the
+  transfer/writer parallelism; ``close()``/``wait()`` drain and surface
+  writer errors exactly once.
 - **Multi-level**: a list of (directory, interval) levels; restore picks
   the newest complete level.
-- **Scrutinized**: a CriticalityReport reduces what is written.  Scrutiny
-  runs once, at the first save, and later saves reuse its report; a
-  ``DeviceReport``'s masks stay resident on device for the save path.
+- **Scrutinized**: a CriticalityReport reduces what is written;
+  re-scrutinize every ``rescrutinize_every`` saves (0: once, at the first
+  save).  A ``DeviceReport``'s masks stay resident on device for the save
+  path, and re-scrutiny is incremental (``DeviceReport.reuse_unchanged``):
+  an unchanged re-scrutiny keeps the same report object, so differential
+  chains stay alive.  ``soundness_check(state, report)`` runs on every
+  fresh report before it is adopted (a raising check writes nothing).
+  A leaf with no critical element costs no mask work: its report gives an
+  empty mask and region table without a D2H, its pack launches no K2, and
+  its restore sends no mask bits and launches no K4.
 - **Differential chains** (``Level.max_chain``): a level keeps its previous
   save's payload sources resident (on device on the device engine) and
   writes only byte-chunks that changed since the previous step (K3).
@@ -83,6 +96,7 @@ from repro_torch._tensors import (check_on, from_host, host_dtype, itemsize,
 from repro_torch.checkpoint.packing import (DeltaLeaf, delta_encode_host,
                                             leaf_mask, pack_leaf,
                                             packed_leaf_stub, unpack_leaf)
+from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.checkpoint.pipeline import (D2H_CHUNK_BYTES, QueueSource,
                                              TransferStream, ViewSource,
                                              fetch_to_host, run_transfers)
@@ -95,13 +109,9 @@ from repro_torch.checkpoint.store import (StreamLeaf, committed_steps,
                                           tmp_owner_of_entry,
                                           tmp_step_of_entry,
                                           tmp_writer_alive)
-from repro_torch.core.criticality import CriticalityReport
+from repro_torch.core.criticality import CriticalityReport, DeviceReport
 from repro_torch.distributed.sharding import scatter_sharded_payload
 from repro_torch.kernels.mask_pack import ops as mask_ops
-
-
-# Seconds after which a foreign writer's tmp dir counts as abandoned.
-WRITER_TTL_S = 600.0
 
 
 @dataclasses.dataclass
@@ -132,6 +142,35 @@ class _ChainState:
     sources: Optional[Dict[str, Any]] = None
 
 
+def update_report(scrutiny_fn, prev, saves: int, every: int, state,
+                  check=None):
+    """The scrutiny schedule: run ``scrutiny_fn`` when there is no report
+    yet or the re-scrutinize interval fires.  A device report
+    re-scrutinizes incrementally (``DeviceReport.reuse_unchanged``): an
+    unchanged re-scrutiny returns the *identical* report object, which is
+    what keeps differential chains keyed on report identity alive.
+    Returns ``(report, ran)``; ``ran`` tells the caller fresh scrutiny
+    stats are on the report.
+
+    ``check``: optional ``check(state, report)`` hook run on every *fresh*
+    report before it is adopted, e.g.
+    ``repro_torch.analysis.soundness_checker(fn)``, which verifies the AD
+    masks against the static analysis and raises on a violation, so an
+    unsound report never reduces a checkpoint."""
+    if scrutiny_fn is None:
+        return None, False
+    need = prev is None or (every and saves % every == 0)
+    if not need:
+        return prev, False
+    new = scrutiny_fn(state)
+    if check is not None:
+        check(state, new)
+    if (new is not prev and isinstance(new, DeviceReport)
+            and isinstance(prev, DeviceReport)):
+        new = new.reuse_unchanged(prev)
+    return new, True
+
+
 def _nbytes(x) -> int:
     return int(x.nbytes)
 
@@ -157,8 +196,11 @@ class _SaveSnapshot:
     def __init__(self, mgr: "CheckpointManager", state, report):
         self.mgr = mgr
         self.report = report
-        self.device = mgr._device_eligible(report)
+        self.tiered = mgr._tiered()
+        self.device = mgr._device_eligible()
         self.engine = mgr._engine if self.device else "host"
+        # on the card the host engine is reached only through precision
+        mgr._check_mode("save engine", self.engine, tiered=self.tiered)
         named, self.treedef = _tree.flatten_with_names(state)
         self.items: List[Tuple[str, Any, Any, str]] = []
         self.full_bytes = 0
@@ -298,10 +340,12 @@ class _SaveSnapshot:
         if kind == "host":
             arr = self._views[name]
             mask = rep.mask if rep is not None else None
-            return pack_leaf(name, arr, mask, dtype=leaf_dtype_name(leaf))
+            mag = rep.magnitude if (rep is not None and self.tiered) else None
+            return pack_leaf(name, arr, mask, mag, self.mgr.precision,
+                             dtype=leaf_dtype_name(leaf))
         shape = tuple(leaf.shape)
         dtype = leaf_dtype_name(leaf)
-        chunk = D2H_CHUNK_BYTES
+        chunk = self.mgr._chunk_bytes
         if kind == "dev_raw":
             stub = packed_leaf_stub(name, shape, dtype, None, _nbytes(leaf))
             return StreamLeaf(stub, _nbytes(leaf),
@@ -370,7 +414,7 @@ class _SaveSnapshot:
         writer consumes entries in the same order — deadlock-free under
         bounded queues regardless of pool size."""
         idx_of = {it[0]: i for i, it in enumerate(self.items)}
-        chunk = D2H_CHUNK_BYTES
+        chunk = self.mgr._chunk_bytes
         streams, order = [], []
         for what, key in self._stream_specs:
             if what == "flat":
@@ -453,9 +497,26 @@ class _SaveSnapshot:
 
 
 class CheckpointManager:
-    """``save_mode``: "auto"/"device" pack scrutinized leaves on the
-    state's device whenever a report is available; "host" snapshots the
-    full state to host memory and packs there.
+    """``save_mode``: "auto"/"device" save on the state's device: packed
+    scrutinized leaves (K2), device clones of the rest, and of every leaf
+    of a save with no report; "host" snapshots the full state to host
+    memory and packs there.
+
+    ``precision``: beyond-paper precision tiers of the critical elements.
+    A tiered save encodes on the host from the report's magnitudes (the
+    reference's design; no kernel tiers), and a tiered leaf restores
+    through the host expand.
+
+    ``rescrutinize_every``: re-run ``scrutiny_fn`` every that many saves
+    (0: only at the first save); see :func:`update_report`.
+    ``soundness_check``: ``check(state, report)`` run on every fresh
+    report before it is adopted; an exception raises out of ``save()``.
+
+    ``delta_chunk_bytes``: chunk size of the differential saves (K3).
+    ``io_threads``: transfer/writer parallelism (default: the largest
+    level shard count, at least 2).  ``io_chunk_bytes``: the D2H and write
+    chunk size.  ``writer_ttl_s``: seconds after which a foreign writer's
+    tmp dir counts as abandoned and is swept.
 
     ``device``: where the state lives and the kernels run — the card
     unless ``"cpu"`` is asked for; a leaf on another device raises.
@@ -479,9 +540,16 @@ class CheckpointManager:
 
     def __init__(self, levels: Sequence[Level],
                  scrutiny_fn: Optional[Callable[[Any], CriticalityReport]] = None,
+                 precision: Optional[PrecisionPolicy] = None,
+                 rescrutinize_every: int = 0,
                  save_mode: str = "auto",
                  restore_mode: str = "auto",
+                 delta_chunk_bytes: int = mask_ops.DELTA_CHUNK_BYTES,
+                 io_threads: Optional[int] = None,
                  pipeline_engine: str = "auto",
+                 io_chunk_bytes: Optional[int] = None,
+                 writer_ttl_s: float = 600.0,
+                 soundness_check: Optional[Callable[[Any, Any], Any]] = None,
                  device=None):
         self.device = resolve_device(device)
         for opt, val in (("save_mode", save_mode),
@@ -492,18 +560,29 @@ class CheckpointManager:
         for lv in self.levels:
             os.makedirs(lv.directory, exist_ok=True)
         self.scrutiny_fn = scrutiny_fn
+        self.precision = precision
+        self.rescrutinize_every = rescrutinize_every
+        self.soundness_check = soundness_check
         self.save_mode = save_mode
         self.restore_mode = restore_mode
+        self.delta_chunk_bytes = int(delta_chunk_bytes)
         if pipeline_engine == "auto":
             pipeline_engine = ("device" if self.device.type == "cuda"
                                else "host")
         self._engine = pipeline_engine
         max_shards = max((lv.shards for lv in self.levels), default=1)
+        self.io_threads = (int(io_threads) if io_threads is not None
+                           else max(2, max_shards))
+        if self.io_threads < 1:
+            raise ValueError("io_threads must be >= 1")
+        self._chunk_bytes = (int(io_chunk_bytes) if io_chunk_bytes
+                             else D2H_CHUNK_BYTES)
         # Per-writer owner token: tmp dirs are written as
         # ``.tmp_step_<N>.<token>`` with a liveness file inside, so two
         # managers sharing one directory never sweep each other's
         # in-flight step (the sweep skips live foreign tokens).
         self._owner = os.urandom(4).hex()
+        self._writer_ttl_s = float(writer_ttl_s)
         self._report: Optional[CriticalityReport] = None
         self._saves = 0
         # job pool: one pipeline job per level write (double-buffered, so
@@ -512,7 +591,7 @@ class CheckpointManager:
             cf.ThreadPoolExecutor(max_workers=max(1, len(self.levels)))
         # io pool: transfer producers + overlapped per-shard writes
         self._io_pool: Optional[cf.ThreadPoolExecutor] = \
-            cf.ThreadPoolExecutor(max_workers=max(2, max_shards))
+            cf.ThreadPoolExecutor(max_workers=self.io_threads)
         self._inflight: Dict[str, cf.Future] = {}
         self._tel_pool: Optional[cf.ThreadPoolExecutor] = None
         self._tel_futs: List[cf.Future] = []
@@ -525,10 +604,13 @@ class CheckpointManager:
         self.last_scrutiny_stats: Optional[Dict[str, Any]] = None
         self._live_save_stats: Optional[Dict[str, Any]] = None
 
-    def _check_mode(self, opt: str, val: str) -> None:
+    def _check_mode(self, opt: str, val: str, tiered: bool = False) -> None:
+        """Refuse a "host" mode on the card: it would move K2's pack or
+        K4's expand to the CPU.  Precision tiers (``tiered``) are the one
+        way the card's saves take the host engine."""
         if val not in ("auto", "host", "device"):
             raise ValueError(f"unknown {opt} {val!r}")
-        if val == "host" and self.device.type == "cuda":
+        if val == "host" and self.device.type == "cuda" and not tiered:
             raise ValueError(
                 f'{opt}="host" would pack or expand on the CPU while the '
                 f'state is on the card; keep it on the card, or pass '
@@ -583,19 +665,37 @@ class CheckpointManager:
     # --- save ------------------------------------------------------------
 
     def maybe_report(self, state) -> Optional[CriticalityReport]:
-        """Run scrutiny at the first save; later saves reuse its report,
-        whose identity keeps differential chains (``_delta_ok``) alive."""
-        if self.scrutiny_fn is None or self._report is not None:
-            return self._report
+        """Run (or re-run) scrutiny on :func:`update_report`'s schedule.
+        Device reports re-scrutinize incrementally, and an unchanged
+        re-scrutiny returns the identical report object, which keeps
+        differential chains (``_delta_ok`` keys on report identity) alive
+        across ``rescrutinize_every=1``."""
         with self.obs.tracer.span("scrutiny", saves=self._saves):
-            self._report = self.scrutiny_fn(state)
-        # live view, not frozen: device reports account their lazy mask
-        # D2H into this dict when materialized
-        self.last_scrutiny_stats = getattr(self._report, "stats", None)
+            new, ran = update_report(self.scrutiny_fn, self._report,
+                                     self._saves, self.rescrutinize_every,
+                                     state, check=self.soundness_check)
+        if ran:
+            # live view, not frozen: device reports account their lazy
+            # mask D2H into this dict when materialized
+            self.last_scrutiny_stats = getattr(new, "stats", None)
+        self._report = new
         return self._report
 
-    def _device_eligible(self, report) -> bool:
-        return self.save_mode != "host" and report is not None
+    def _tiered(self) -> bool:
+        return self.precision is not None and self.precision.enabled
+
+    def _device_eligible(self) -> bool:
+        """Device engine unless ``save_mode="host"`` or the tiers need the
+        host's magnitudes; a save with no report takes it too (``dev_raw``
+        for every leaf)."""
+        return self.save_mode != "host" and not self._tiered()
+
+    def _host_reason(self, snap) -> Optional[str]:
+        if snap.engine != "host":
+            return None
+        if snap.tiered:
+            return "tiered"
+        return "save_mode" if self.save_mode == "host" else "engine"
 
     def _delta_ok(self, lv: Level, cs: Optional[_ChainState],
                   snap: _SaveSnapshot) -> bool:
@@ -626,6 +726,7 @@ class CheckpointManager:
         stats = {
             "mode": "device" if snap.device else "host",
             "engine": snap.engine,
+            "host_reason": self._host_reason(snap),
             "d2h_bytes": 0,
             "full_bytes": int(snap.full_bytes),
             "packed_leaves": sum(1 for *_, k in snap.items
@@ -845,8 +946,8 @@ class CheckpointManager:
         try:
             t0 = time.perf_counter()
             with snap.obs_handle.stage("delta", level=lv.directory):
-                deltas, moved = snap.build_deltas(
-                    prev_sources, mask_ops.DELTA_CHUNK_BYTES)
+                deltas, moved = snap.build_deltas(prev_sources,
+                                                  self.delta_chunk_bytes)
                 cs.sources = snap.chain_sources()
             snap.stat_add("d2h_bytes", int(moved))
             self.obs.registry.counter("save.d2h_bytes").inc(int(moved))
@@ -897,14 +998,14 @@ class CheckpointManager:
                     # are reclaimed here too once their liveness goes stale
                     if pending_step_of_entry(e) is not None and \
                             not tmp_writer_alive(lv.directory, e,
-                                                 WRITER_TTL_S):
+                                                 self._writer_ttl_s):
                         shutil.rmtree(os.path.join(lv.directory, e),
                                       ignore_errors=True)
                     continue
                 owner = tmp_owner_of_entry(e)
                 if (owner is not None and owner != self._owner
                         and tmp_writer_alive(lv.directory, e,
-                                             WRITER_TTL_S)):
+                                             self._writer_ttl_s)):
                     continue           # live foreign writer: not ours to GC
                 shutil.rmtree(os.path.join(lv.directory, e),
                               ignore_errors=True)

@@ -229,19 +229,22 @@ class TransferStream:
         itemsize = self.dev_flat.element_size()
         moved = 0
         si = 0                                  # current sink index
-        sink_off = 0                            # elements already fed to it
+        # bytes already fed to it: a chunk size that is not a multiple of
+        # the itemsize splits an element across two chunks
+        sink_off = 0
         for host in device_chunks(self.dev_flat, self.chunk_bytes,
                                   self.ready):
             moved += host.nbytes
             off = 0                             # bytes consumed of the chunk
             while off < host.nbytes and si < len(self.sinks):
                 sink, lo, hi = self.sinks[si]
-                take = min((hi - lo - sink_off) * itemsize, host.nbytes - off)
+                take = min((hi - lo) * itemsize - sink_off,
+                           host.nbytes - off)
                 if take > 0:
                     sink.put(host[off:off + take])
                     off += take
-                    sink_off += take // itemsize
-                if lo + sink_off >= hi:
+                    sink_off += take
+                if sink_off >= (hi - lo) * itemsize:
                     sink.close()
                     si += 1
                     sink_off = 0

@@ -2,6 +2,8 @@
 
 Public API:
     scrutinize(fn, state, config=..., device=...)  -> CriticalityReport
+    participation(fn, state, config=..., device=...) -> CriticalityReport
+    traced_step(fn, state, device=...) -> TracedStep (the shared trace)
     CriticalityReport / LeafReport / DeviceReport / DeviceLeafReport
     RegionTable, mask_to_regions, regions_to_mask
     ScrutinyConfig, LeafPolicy, PrecisionPolicy
@@ -12,7 +14,10 @@ from repro_torch.core.criticality import (
     DeviceLeafReport,
     DeviceReport,
     LeafReport,
+    TracedStep,
     scrutinize,
+    scrutinize_graph_reads,
+    traced_step,
 )
 from repro_torch.core.policy import (
     LeafPolicy,
@@ -22,6 +27,7 @@ from repro_torch.core.policy import (
     TIERED_BF16,
     default_leaf_policy,
 )
+from repro_torch.core.taint import UnattributedTensorError, participation
 from repro_torch.core.regions import (
     RegionTable,
     mask_to_regions,
@@ -35,7 +41,12 @@ __all__ = [
     "DeviceLeafReport",
     "DeviceReport",
     "LeafReport",
+    "TracedStep",
+    "UnattributedTensorError",
+    "participation",
     "scrutinize",
+    "scrutinize_graph_reads",
+    "traced_step",
     "LeafPolicy",
     "PrecisionPolicy",
     "PrecisionTier",

@@ -22,8 +22,14 @@ their cotangents from the same seeded generators, so their masks agree
 word for word.
 
 ``fn`` must be functional for ``torch.func``: an in-place op on a state
-leaf inside ``fn`` raises.  An input ``fn`` never reads gets a zero
-gradient, so dead leaves get all-zero masks without a graph pre-pass.
+leaf inside ``fn`` raises.  A structural pre-pass (``scrutinize_graph_reads``;
+``ScrutinyConfig.graph_prepass``, the reference's jaxpr pre-pass)
+zero-masks the leaves that reach no output without running a backward
+pass for them: it runs ``fn`` once under a dispatch mode that follows
+each aten op's inputs to its outputs (``taint.run_reads``), with no trace.
+``static_prune`` takes the full static analyzer instead, over a traced
+aten graph; one trace per (fn, state structure) serves it, participation
+(``core/taint.py``) and the static analyzer (``traced_step``).
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import time
+import weakref
+from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -44,6 +52,237 @@ from repro_torch.core.bitset import BitMask
 from repro_torch.core.policy import LeafPolicy, ScrutinyConfig
 from repro_torch.core.regions import RegionTable
 from repro_torch.kernels.mask_pack import ops as mask_ops
+
+
+# --------------------------------------------------------------------------
+# Shared trace cache
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TracedStep:
+    """One traced (fn, state-structure) pair, shared by every consumer.
+
+    ``gm`` is ``fn`` as a flat leaves→leaves aten graph: traced with
+    ``make_fx`` (``tracing_mode="real"``, under ``no_grad``) through
+    ``torch.func.functionalize``, so it holds no in-place op; placeholders
+    correspond 1:1 with the flattened state leaves, the output's tensors
+    with the flattened outputs.  Participation, the static analyzer and
+    the ``static_prune`` pre-pass consume the *same* trace (``trace_s``;
+    ``cached`` marks a cache hit, which costs only the flatten).  ``sig``
+    is the structure key within ``fn``'s caches (None when nothing is
+    cached);
+    value-sensitive caches layered on the trace (the static-prune cache)
+    key on it plus a digest of the leaves whose values matter.
+    """
+
+    gm: Any                           # torch.fx.GraphModule
+    names: List[str]
+    treedef: Any
+    leaves: List[torch.Tensor]
+    trace_s: float
+    cached: bool
+    sig: Any = None
+
+
+# Per-fn caches (traces, index-feeding sets, static prune sets), held
+# weakly on fn: a trace's constants (a closure's tensors: an engine's
+# parameters) live no longer than the fn that closes over them.
+_FN_CACHES: "weakref.WeakKeyDictionary[Any, OrderedDict]" = \
+    weakref.WeakKeyDictionary()
+_FN_CACHE_MAX = 16
+
+
+def _fn_cache(fn) -> Optional[OrderedDict]:
+    """``fn``'s cache, None when ``fn`` cannot be held weakly."""
+    try:
+        return _FN_CACHES.setdefault(fn, OrderedDict())
+    except TypeError:
+        return None
+
+
+def _cache_put(cache: OrderedDict, key, value) -> None:
+    cache[key] = value
+    while len(cache) > _FN_CACHE_MAX:
+        cache.popitem(last=False)
+
+
+def _value_digest(leaves, positions) -> tuple:
+    """Digest of the leaves at ``positions`` (their values cross D2H)."""
+    parts = []
+    for i in sorted(positions):
+        arr = leaves[i].detach().cpu().contiguous()
+        parts.append((i, tuple(arr.shape), str(arr.dtype), hashlib.blake2b(
+            arr.reshape(-1).view(torch.uint8).numpy().tobytes(),
+            digest_size=16).digest()))
+    return tuple(parts)
+
+
+def _trace(fn, treedef, leaves):
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    def flat_fn(*ls):
+        return tuple(_tree.leaves(fn(_tree.unflatten(treedef, list(ls)))))
+
+    with torch.no_grad():
+        return make_fx(torch.func.functionalize(flat_fn),
+                       tracing_mode="real")(*leaves)
+
+
+def traced_step(fn: Callable[[Any], Any], state: Any, *,
+                device=None) -> TracedStep:
+    """Trace ``fn`` as a flat leaves→leaves aten graph on ``device`` (the
+    card unless ``"cpu"`` is asked for), cached per (fn, treedef, leaf
+    shapes/dtypes, device) while ``fn`` lives.  The graph depends on leaf
+    values only where
+    an op's output shape does (``nonzero``, ``repeat_interleave``, ...;
+    a value-dependent branch fails the trace); a cached graph is re-traced
+    when the leaves feeding such an op changed value."""
+    from repro_torch.core import taint
+
+    dev = resolve_device(device)
+    names, treedef, leaves = _flat_state(state, dev, "trace")
+    cache = _fn_cache(fn)
+    sig = None
+    if cache is not None:
+        try:
+            sig = (treedef, tuple((tuple(l.shape), str(l.dtype))
+                                  for l in leaves), str(dev))
+            hash(sig)
+        except TypeError:
+            sig = None
+    hit = cache.get(("trace", sig)) if sig is not None else None
+    if hit is not None:
+        graph, baked = hit
+        if not baked or _value_digest(leaves, baked[0]) == baked[1]:
+            cache.move_to_end(("trace", sig))
+            return TracedStep(graph, names, treedef, leaves, trace_s=0.0,
+                              cached=True, sig=sig)
+    t0 = time.perf_counter()
+    graph = _trace(fn, treedef, leaves)
+    trace_s = time.perf_counter() - t0
+    ts = TracedStep(graph, names, treedef, leaves, trace_s, cached=False,
+                    sig=sig)
+    if sig is not None:
+        pos = taint.shape_baking_leaves(ts)
+        _cache_put(cache, ("trace", sig),
+                   (graph, (pos, _value_digest(leaves, pos)) if pos
+                    else None))
+    return ts
+
+
+def scrutinize_graph_reads(fn: Callable[[Any], Any], state: Any, *,
+                           traced: Optional[TracedStep] = None,
+                           device=None) -> Dict[str, bool]:
+    """Cheap structural pre-pass (the reference's
+    ``scrutinize_jaxpr_reads``): which *whole leaves* any output reads.
+    A leaf no output reads is uncritical in toto without a backward pass;
+    element-granular analysis still needs AD (the paper's point).
+    ``traced``: an already-traced :class:`TracedStep`, whose aten graph is
+    walked; omitted, ``fn`` runs once under the reads walk's dispatch mode
+    (``taint.run_reads``: no trace, and host reads run as they are)."""
+    from repro_torch.core import taint
+
+    if traced is not None:
+        return dict(zip(traced.names, taint.read_leaves(traced)))
+    names, treedef, leaves = _flat_state(state, resolve_device(device),
+                                         "reads walk")
+    return dict(zip(names, taint.run_reads(fn, treedef, leaves)[0]))
+
+
+def _flat_state(state, dev: torch.device, what: str):
+    """(names, treedef, leaves) of ``state``, every leaf on ``dev``."""
+    named, treedef = _tree.flatten_with_names(state)
+    leaves = []
+    for name, leaf in named:
+        check_on(leaf, dev, f"{what} leaf {name!r}")
+        leaves.append(leaf.detach() if isinstance(leaf, torch.Tensor)
+                      else torch.as_tensor(leaf, device=dev))
+    return [n for n, _ in named], treedef, leaves
+
+
+@dataclasses.dataclass
+class _Prepass:
+    """Per-call prepass result: the dead-leaf set plus its accounting."""
+
+    dead: frozenset = frozenset()
+    reads_s: float = 0.0
+    trace_s: float = 0.0
+    trace_cached: bool = False
+    static_prune_s: float = 0.0
+    static_prune_cached: bool = False
+    static_pruned_elements: int = 0
+    # leaves pruned on *taint* evidence only (read, but statically
+    # all-dead): they never enter the vjp sweep, so the soundness gate
+    # cannot verify them; it flags them instead.
+    taint_pruned_names: Tuple[str, ...] = ()
+    # whether the traced graph has a floating or complex output: checked
+    # even when every AD leaf is pruned (the sweep would raise otherwise)
+    differentiable: bool = True
+
+
+def _prepass_for(fn, state, names, treedef, leaves, policies,
+                 config: ScrutinyConfig, device) -> _Prepass:
+    """The prepass dead-leaf set for *this* call's state values.
+
+    The static prune set is never cached on structure alone: a ring-buffer
+    pointer moving from an out-of-range slot to a live one changes which
+    leaves the static analyzer proves dead.  The key is (trace signature,
+    policies, digest of the index-feeding leaves' values): states that
+    differ only in other values hit the cache."""
+    pre = _Prepass()
+    ad = [i for i, p in enumerate(policies)
+          if p in (LeafPolicy.AD, LeafPolicy.HORIZON)]
+    if not ad or not (config.graph_prepass or config.static_prune):
+        return pre
+    if not config.static_prune:
+        from repro_torch.core.taint import run_reads
+
+        t0 = time.perf_counter()
+        used, pre.differentiable = run_reads(fn, treedef, leaves)
+        pre.reads_s = time.perf_counter() - t0
+        pre.dead = frozenset(i for i in ad if not used[i])
+        return pre
+    ts = traced_step(fn, state, device=device)
+    pre.trace_s, pre.trace_cached = ts.trace_s, ts.cached
+    out = next(n for n in ts.gm.graph.nodes if n.op == "output")
+    pre.differentiable = any(
+        isinstance(v, torch.Tensor) and (v.is_floating_point()
+                                         or v.is_complex())
+        for v in (getattr(n, "meta", {}).get("val")
+                  for n in _tree.leaves(out.args)))
+    used = scrutinize_graph_reads(fn, state, traced=ts)
+
+    from repro_torch.analysis.static import analyze_static
+    from repro_torch.core.taint import index_feeding_leaves
+
+    t0 = time.perf_counter()
+    cache = _fn_cache(fn) if ts.sig is not None else None
+    cache_key = None
+    if cache is not None:
+        feed = cache.get(("feed", ts.sig))
+        if feed is None:
+            feed = index_feeding_leaves(ts)
+            _cache_put(cache, ("feed", ts.sig), feed)
+        cache_key = ("prune", ts.sig, tuple(policies),
+                     _value_digest(ts.leaves, feed))
+    if cache_key is not None and cache_key in cache:
+        cache.move_to_end(cache_key)
+        pre.dead, pre.taint_pruned_names = cache[cache_key]
+        pre.static_prune_cached = True
+    else:
+        # the element-wise static masks prove more leaves dead than the
+        # reads walk (state written before it is read is live to the
+        # reads walk but all-False statically)
+        static = analyze_static(fn, state, config=config, traced=ts)
+        pre.dead = frozenset(i for i in ad
+                             if not static[names[i]].mask.any())
+        pre.taint_pruned_names = tuple(sorted(
+            names[i] for i in pre.dead if used[names[i]]))
+        if cache_key is not None:
+            _cache_put(cache, cache_key, (pre.dead, pre.taint_pruned_names))
+    pre.static_prune_s = time.perf_counter() - t0
+    pre.static_pruned_elements = sum(leaves[i].numel() for i in pre.dead)
+    return pre
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,7 +397,10 @@ class DeviceLeafReport:
     (magnitudes) on first access, recorded in the report's
     ``stats["d2h_bytes"]``.  ``device_words()`` hands the resident words to
     the device save path as they are; ``device_mask()`` expands them on
-    device (and caches the byte mask) for K5 and the NPB restart.
+    device (and caches the byte mask) for K5 and the NPB restart.  A leaf
+    with no critical element (a training state's Adam moments) gives an
+    empty result: zero words, mask and region table made on the host
+    without reading the resident words.
     """
 
     __slots__ = ("name", "shape", "dtype", "policy", "n", "device",
@@ -238,7 +480,7 @@ class DeviceLeafReport:
         """Bit-packed mask words on the host (``np.packbits`` order — also
         the checkpoint bitmap aux encoding)."""
         if self._words_host is None:
-            if self.words_dev is not None:
+            if self.words_dev is not None and self._critical:
                 w = self.words_dev.cpu().numpy()
                 self._stats["d2h_bytes"] = \
                     self._stats.get("d2h_bytes", 0) + w.nbytes
@@ -254,12 +496,17 @@ class DeviceLeafReport:
     def mask(self) -> np.ndarray:
         if self._mask is None:
             self._mask = (np.unpackbits(self.mask_words, count=self.n)
-                          .astype(bool) if self.n else np.zeros(0, bool))
+                          .astype(bool) if self._critical
+                          else np.zeros(self.n, bool))
         return self._mask
 
     @property
     def table(self) -> RegionTable:
         if self._table is None:
+            if not self._critical:
+                self._table = RegionTable(np.zeros((0, 2), np.int64),
+                                          self.n, itemsize(self.dtype))
+                return self._table
             t = RegionTable.from_words(self.mask_words, self.n,
                                        itemsize(self.dtype))
             t.validate()
@@ -387,16 +634,18 @@ class _SweepEngine:
     """The multi-probe vjp sweep for one (fn, structure, config)."""
 
     def __init__(self, fn, treedef, leaves, policies, config: ScrutinyConfig,
-                 device: torch.device):
+                 device: torch.device, dead: frozenset = frozenset()):
         self.fn = fn
         self.treedef = treedef
         self.device = device
         self.seed = int(config.seed)
         self.probes = max(1, config.probes)
         self.jitter = float(config.input_jitter)
-        self.ad_idx: Tuple[int, ...] = tuple(
-            i for i, p in enumerate(policies)
-            if p in (LeafPolicy.AD, LeafPolicy.HORIZON))
+        ad = [i for i, p in enumerate(policies)
+              if p in (LeafPolicy.AD, LeafPolicy.HORIZON)]
+        self.dead = frozenset(dead) & set(ad)
+        self.ad_idx: Tuple[int, ...] = tuple(i for i in ad
+                                             if i not in self.dead)
         self.sizes = tuple(leaves[i].numel() for i in self.ad_idx)
         self.accum_dtypes = tuple(_accum_dtype(leaves[i].dtype)
                                   for i in self.ad_idx)
@@ -463,24 +712,25 @@ def scrutinize(fn: Callable[[Any], Any], state: Any, *,
     if engine not in ("device", "host"):
         raise ValueError(f"unknown scrutiny engine {config.engine!r}")
 
-    named, treedef = _tree.flatten_with_names(state)
-    names = [n for n, _ in named]
-    leaves = []
-    for name, leaf in named:
-        check_on(leaf, dev, f"scrutinize leaf {name!r}")
-        leaves.append(leaf.detach() if isinstance(leaf, torch.Tensor)
-                      else torch.as_tensor(leaf, device=dev))
+    names, treedef, leaves = _flat_state(state, dev, "scrutinize")
     policies = [config.leaf_policy(l) for l in leaves]
 
     obs = obs_mod.get_obs()
-    eng = _SweepEngine(fn, treedef, leaves, policies, config, dev)
+    with obs.tracer.span("scrutiny.prepass", leaves=len(leaves)):
+        pre = _prepass_for(fn, state, names, treedef, leaves, policies,
+                           config, dev)
+    eng = _SweepEngine(fn, treedef, leaves, policies, config, dev, pre.dead)
+    if eng.dead and not pre.differentiable:
+        raise ValueError("scrutinize: fn produced no differentiable "
+                         "outputs; criticality via AD is undefined.")
     t0 = time.perf_counter()
     with obs.tracer.span("scrutiny.sweep", engine=engine,
                          probes=eng.probes, leaves=len(eng.ad_idx)):
         if engine == "host":
-            rep = _scrutinize_host(eng, names, leaves, policies, config)
+            rep = _scrutinize_host(eng, names, leaves, policies, config, pre)
         else:
-            rep = _scrutinize_device(eng, names, leaves, policies, config)
+            rep = _scrutinize_device(eng, names, leaves, policies, config,
+                                     pre)
     if obs.enabled:
         reg = obs.registry
         reg.histogram("scrutiny.sweep_s").observe(time.perf_counter() - t0)
@@ -488,15 +738,23 @@ def scrutinize(fn: Callable[[Any], Any], state: Any, *,
     return rep
 
 
-def _base_stats(eng: _SweepEngine, engine: str) -> Dict[str, Any]:
+def _base_stats(eng: _SweepEngine, engine: str,
+                pre: _Prepass) -> Dict[str, Any]:
     return {"engine": engine, "probes": eng.probes, "d2h_bytes": 0,
-            "sweep_leaves": len(eng.ad_idx),
-            "sweep_elements": sum(eng.sizes)}
+            "sweep_leaves": len(eng.ad_idx), "dead_leaves": len(eng.dead),
+            "sweep_elements": sum(eng.sizes),
+            "prepass_reads_s": pre.reads_s,
+            "prepass_trace_s": pre.trace_s,
+            "prepass_trace_cached": pre.trace_cached,
+            "static_prune_s": pre.static_prune_s,
+            "static_prune_cached": pre.static_prune_cached,
+            "static_pruned_elements": pre.static_pruned_elements,
+            "static_taint_pruned_leaves": list(pre.taint_pruned_names)}
 
 
 def _scrutinize_device(eng: _SweepEngine, names, leaves, policies,
-                       config: ScrutinyConfig) -> DeviceReport:
-    stats = _base_stats(eng, "device")
+                       config: ScrutinyConfig, pre: _Prepass) -> DeviceReport:
+    stats = _base_stats(eng, "device", pre)
     mags: Dict[int, torch.Tensor] = {}
     if eng.ad_idx:
         accums = [torch.zeros(s, dtype=d, device=eng.device)
@@ -536,15 +794,16 @@ def _scrutinize_device(eng: _SweepEngine, names, leaves, policies,
                 magnitude_dev=mags[i], **common)
         elif pol == LeafPolicy.ALWAYS_CRITICAL:
             reports[name] = DeviceLeafReport(critical=n, **common)
-        else:  # ALWAYS_UNCRITICAL
+        else:  # ALWAYS_UNCRITICAL, or an AD leaf no output reads
             reports[name] = DeviceLeafReport(critical=0, **common)
     return DeviceReport(reports, stats)
 
 
 def _scrutinize_host(eng: _SweepEngine, names, leaves, policies,
-                     config: ScrutinyConfig) -> CriticalityReport:
+                     config: ScrutinyConfig,
+                     pre: _Prepass) -> CriticalityReport:
     """Reference engine: every probe's full gradients move to the host."""
-    stats = _base_stats(eng, "host")
+    stats = _base_stats(eng, "host", pre)
     magnitudes: Dict[int, np.ndarray] = {}
     if eng.ad_idx:
         accum = [np.zeros(s, dtype=dtype_name(d))
@@ -567,7 +826,7 @@ def _scrutinize_host(eng: _SweepEngine, names, leaves, policies,
             mask = mag > np.asarray(config.zero_tol, mag.dtype)
         elif pol == LeafPolicy.ALWAYS_CRITICAL:
             mask, mag = np.ones(n, dtype=bool), None
-        else:  # ALWAYS_UNCRITICAL
+        else:  # ALWAYS_UNCRITICAL, or an AD leaf no output reads
             mask, mag = np.zeros(n, dtype=bool), None
         name_dt = dtype_name(leaf.dtype)
         table = RegionTable.from_mask(mask, itemsize=itemsize(name_dt))

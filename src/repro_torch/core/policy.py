@@ -92,6 +92,21 @@ class ScrutinyConfig:
     ``seed``: seeds the probe cotangents and jitter — probe ``p`` draws
     from a ``torch.Generator`` on the state's device seeded from
     ``(seed, p)``, shared by both engines.
+    ``graph_prepass``: the counterpart of the reference's
+    ``jaxpr_prepass``: run ``scrutinize_graph_reads`` first and skip the
+    vjp sweep for leaves no output reads (an all-zero mask without a
+    backward pass).  It runs ``fn`` once under a dispatch mode that follows
+    each aten op's inputs to its outputs, with no trace, so it costs about
+    one forward and takes every ``fn`` the sweep takes.  On by default, as
+    there.
+    ``static_prune``: run the full static analyzer
+    (``repro_torch.analysis.analyze_static``) as the pre-pass instead:
+    leaves it proves element-wise uncritical (written before they are
+    read) skip the sweep too.  Static masks depend on concrete index
+    values, so the dead set is recomputed per call, cached under a digest
+    of exactly the index-feeding leaves' values.  Stats gain
+    ``static_prune_s`` / ``static_prune_cached`` /
+    ``static_pruned_elements`` / ``static_taint_pruned_leaves``.
     """
 
     probes: int = 3
@@ -101,3 +116,5 @@ class ScrutinyConfig:
     precision: PrecisionPolicy = DEFAULT_PRECISION
     engine: str = "auto"               # auto | device | host
     seed: int = 0
+    graph_prepass: bool = True
+    static_prune: bool = False

@@ -61,6 +61,8 @@ def regions_to_indices(regions: np.ndarray) -> np.ndarray:
 def regions_to_mask(regions: np.ndarray, size: int) -> np.ndarray:
     """(R, 2) runs → flat bool mask of length ``size``."""
     regions = np.asarray(regions, dtype=np.int64).reshape(-1, 2)
+    if len(regions) == 0:
+        return np.zeros(size, dtype=bool)
     # +1 at starts / -1 at stops, then a running sum marks interior elements.
     delta = np.zeros(size + 1, dtype=np.int32)
     np.add.at(delta, regions[:, 0], 1)

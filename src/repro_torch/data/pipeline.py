@@ -81,20 +81,32 @@ def _fill(cfg, key, start_step, batch, seq, n):
                         for i in range(n)])
 
 
+def _slot(state) -> torch.Tensor:
+    """The ring-buffer slot under the cursor, as a (1,) index on the
+    state's device (no host read, so a traced step can hold it)."""
+    return state["cursor"].remainder(PREFETCH).reshape(1).long()
+
+
+def peek_batch(cfg, state) -> Dict[str, torch.Tensor]:
+    """The batch ``next_batch`` pops, without the refill: the one part of
+    the pipeline a training step's loss reads."""
+    del cfg
+    tokens = state["buffer"].index_select(0, _slot(state))[0]
+    return {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+
+
 def next_batch(cfg, state) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
     """Pop one batch; refill the consumed slot deterministically.  The
     state passed in is not written."""
-    cur = state["cursor"]
-    slot = int(cur) % PREFETCH
-    tokens = state["buffer"][slot]
-    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    batch = peek_batch(cfg, state)
+    tokens = batch["tokens"]
     step = state["step"] + 1
     gen = _generator(state["key"], int(step) + PREFETCH - 1)
     new_slot = torch.randint(0, cfg.vocab, tuple(tokens.shape),
                              generator=gen, device=tokens.device,
                              dtype=torch.int32)
-    buf = state["buffer"].index_copy(
-        0, torch.tensor([slot], device=tokens.device), new_slot[None])
+    buf = state["buffer"].index_copy(0, _slot(state), new_slot[None])
+    cur = state["cursor"]
     return batch, {"key": state["key"], "step": step, "buffer": buf,
                    "cursor": cur + 1}
 

@@ -64,12 +64,13 @@ def scatter_sharded_payload(payload: np.ndarray, mask: np.ndarray, shape,
     critical ``payload`` (host array of dtype ``dtype``) and the mask's
     ``np.packbits`` words H2D and scatter the payload under the words into
     a fill-initialized tensor on ``device`` (K4 reads the words as they
-    are).  Returns ``(tensor, h2d_bytes)``."""
+    are).  A leaf with no critical element moves no words and runs no K4.
+    Returns ``(tensor, h2d_bytes)``."""
     shape = tuple(shape)
     n = int(np.prod(shape)) if shape else 1
-    mask = np.asarray(mask, bool).reshape(-1)
     payload = np.asarray(payload).reshape(-1)
-    bits = np.packbits(mask)
+    bits = (np.packbits(np.asarray(mask, bool).reshape(-1)) if payload.size
+            else np.zeros(0, np.uint8))
     out = mask_ops.mask_scatter(from_host(payload, dtype, device),
                                 torch.from_numpy(bits).to(device), n=n,
                                 fill=fill, block=block)

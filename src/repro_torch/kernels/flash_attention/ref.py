@@ -39,9 +39,9 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ki = torch.arange(Tk, device=q.device)[None, :]
     ok = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
     if causal:
-        ok &= qi >= ki
+        ok = ok & (qi >= ki)
     if window is not None:
-        ok &= qi - ki < window
+        ok = ok & (qi - ki < window)
     zero = torch.zeros((), dtype=torch.float32, device=q.device)
     s = s + torch.where(ok, zero, _NEG)
     p = torch.softmax(s, dim=-1)
@@ -63,9 +63,9 @@ def _tile_mask(Tq: int, k0: int, k1: int, window: Optional[int],
     ki = torch.arange(k0, k1, device=device)[None, :]
     ok = torch.ones((Tq, k1 - k0), dtype=torch.bool, device=device)
     if causal:
-        ok &= qi >= ki
+        ok = ok & (qi >= ki)
     if window is not None:
-        ok &= qi - ki < window
+        ok = ok & (qi - ki < window)
     return ok
 
 

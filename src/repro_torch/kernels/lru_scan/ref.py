@@ -35,6 +35,29 @@ def lru_scan_ref(a: torch.Tensor, b: torch.Tensor,
     return torch.stack(out, dim=1)
 
 
+def lru_scan_backward_ref(a: torch.Tensor, h: torch.Tensor,
+                          h0: Optional[torch.Tensor], dh: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     Optional[torch.Tensor]]:
+    """The backward of :func:`lru_scan_ref` step by step, from the
+    forward's ``h`` as K7's backward reads it: (da, db, dh0) in a's dtype
+    with an f32 carry, dh0 None without h0.  With g_t = dh_t +
+    a_{t+1} g_{t+1}: db_t = g_t, da_t = g_t h_{t-1}, dh0 = a_0 g_0.  For f32
+    and f64 inputs ``h`` holds the carry exactly, so this is autograd's
+    gradient through :func:`lru_scan_ref`."""
+    g = torch.zeros(a[:, 0].shape, dtype=torch.float32, device=a.device)
+    a_next = torch.zeros_like(g)
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    for t in range(a.shape[1] - 1, -1, -1):
+        g = dh[:, t].float() + a_next * g
+        db[:, t] = g.to(a.dtype)
+        h_prev = h[:, t - 1].float() if t else (
+            torch.zeros_like(g) if h0 is None else h0.float())
+        da[:, t] = (g * h_prev).to(a.dtype)
+        a_next = a[:, t].float()
+    return da, db, None if h0 is None else (a_next * g).to(h0.dtype)
+
+
 # Time steps per chunk in K7's forward and backward kernels
 # (csrc/lru_scan.cu kSteps).
 FWD_CHUNK = 8

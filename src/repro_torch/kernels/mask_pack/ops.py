@@ -179,7 +179,11 @@ def pack_group(flats: Sequence[torch.Tensor], words: Sequence[torch.Tensor],
         w = _check_words(w, f.shape[0], "pack_group")
         _check_block(block, BLOCK, card)
         dst = payload[lo:lo + t]
-        if card:
+        if t == 0:
+            # no critical element: zero counts, no K2
+            counts.append(torch.zeros(-(-f.shape[0] // block),
+                                      dtype=torch.int32, device=device))
+        elif card:
             counts.append(K.pack_into(f.contiguous(), w.contiguous(), dst,
                                       tiled=False))
         else:
@@ -215,15 +219,17 @@ def mask_scatter(payload: torch.Tensor, words: torch.Tensor, *, n: int,
     tile starts are counted from the words on the payload's device, so
     the only H2D inputs are the payload and 1 bit per element."""
     payload = payload.reshape(-1)
-    card = _on_card(payload, words)
-    words = _check_words(words, n, "mask_scatter")
-    _check_block(block, BLOCK, card)
     # the fill stays on the host: the kernel takes its bytes by value, and
     # reading them from the card would wait for the stream
     fill_t = ref.fill_tensor(fill, payload.dtype, "cpu")
     if payload.shape[0] == 0:
+        # no critical element: the fill, without reading the words (the
+        # restore of such a leaf sends none)
         return torch.empty(n, dtype=payload.dtype,
                            device=payload.device).fill_(fill_t)
+    card = _on_card(payload, words)
+    words = _check_words(words, n, "mask_scatter")
+    _check_block(block, BLOCK, card)
     if not card:
         return ref.mask_scatter_ref(
             payload, ref.expand_mask_bits(words, n=n), fill_t, block)

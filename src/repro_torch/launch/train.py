@@ -11,13 +11,14 @@ The loop wires the port's substrates together: the data pipeline
 the newest complete checkpoint.  It runs on the card unless ``--device
 cpu`` is given.
 
-``--scrutinize`` reduces the checkpoints with the port's AD
-``scrutinize`` of the reference's resume function, the next step's
-``metrics["loss"]``; the reference runs participation analysis there,
-which comes with ROADMAP Queue 1 item 8 (for this function its masks equal
-AD's).  ``--verify-static`` (item 8) and the multi-host path
-(``--coordinated``, ``--coord-dir``: item 10) raise
-``NotImplementedError``.
+``--scrutinize`` reduces the checkpoints with participation analysis of
+the reference's resume function, the next step's ``metrics["loss"]``, as
+the reference does.  ``--verify-static`` scrutinizes with the AD engine
+instead, its sweep pruned by the static analyzer
+(``ScrutinyConfig(static_prune=True)``), and gates every report on the
+AD ⊆ static soundness check (``analysis.soundness_checker``) before it
+reduces a checkpoint.  The multi-host path (``--coordinated``,
+``--coord-dir``: ROADMAP Queue 1 item 10) raises ``NotImplementedError``.
 
 ``--preset smoke`` shrinks the model (``ArchConfig.reduced()``).
 """
@@ -35,7 +36,8 @@ import torch
 from repro_torch._tensors import resolve_device
 from repro_torch.checkpoint import CheckpointManager, Level
 from repro_torch.configs import get_config
-from repro_torch.core import ScrutinyConfig, scrutinize
+from repro_torch.analysis import soundness_checker
+from repro_torch.core import ScrutinyConfig, participation, scrutinize
 from repro_torch.data import pipeline as data_pipeline
 from repro_torch.models import count_params, init_params, loss_fn
 from repro_torch.train.optim import OptConfig, init_opt
@@ -72,7 +74,10 @@ def make_resume_fn(cfg):
     cfg32 = dataclasses.replace(cfg, dtype="float32")
 
     def resume(s):
-        batch, _ = data_pipeline.next_batch(cfg, s["data"])
+        # the batch next_batch pops; its refill does not reach the loss
+        # (XLA drops it from the reference's step), and its generator's
+        # seed is a host read that no traced step can hold
+        batch = data_pipeline.peek_batch(cfg, s["data"])
         return {"loss": loss_fn(cfg32, s["params"], batch)}
 
     return resume
@@ -92,10 +97,11 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--scrutinize", action="store_true",
-                    help="reduce checkpoints with the AD scrutiny of the "
-                         "next step's loss")
+                    help="reduce checkpoints with participation analysis")
     ap.add_argument("--verify-static", action="store_true",
-                    help="not ported yet (ROADMAP Queue 1 item 8)")
+                    help="scrutinize with the AD probe engine, prune the "
+                         "sweep with the static analyzer, and gate every "
+                         "report on the AD⊆static soundness check")
     ap.add_argument("--coordinated", action="store_true",
                     help="not ported yet (ROADMAP Queue 1 item 10)")
     ap.add_argument("--coord-dir", default=None,
@@ -111,10 +117,6 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    if args.verify_static:
-        raise NotImplementedError(
-            "--verify-static needs the static analyzer and participation, "
-            "not ported yet (ROADMAP Queue 1 item 8)")
     if args.coordinated or args.coord_dir is not None:
         raise NotImplementedError(
             "the coordinated multi-host save is not ported yet (ROADMAP "
@@ -135,12 +137,24 @@ def main(argv=None):
           f"batch={args.batch} seq={args.seq} device={device}")
 
     scrutiny_fn = None
-    if args.scrutinize:
+    soundness_check = None
+    if args.scrutinize or args.verify_static:
+        # one stable fn object, so the shared trace cache hits across
+        # scrutiny, the static analyzer and the soundness gate
         resume = make_resume_fn(cfg)
+        if args.verify_static:
+            scfg = ScrutinyConfig(static_prune=True)
 
-        def scrutiny_fn(s):
-            return scrutinize(resume, s, config=ScrutinyConfig(),
-                              device=device)
+            def scrutiny_fn(s):
+                return scrutinize(resume, s, config=scfg, device=device)
+
+            soundness_check = soundness_checker(resume, device=device)
+            print("static verification: soundness gate + probe-sweep "
+                  "pruning enabled")
+        else:
+            def scrutiny_fn(s):
+                return participation(resume, s, config=ScrutinyConfig(),
+                                     device=device)
 
     mgr = CheckpointManager(
         [Level(os.path.join(args.ckpt_dir, "ram"), interval=args.ckpt_every,
@@ -148,7 +162,8 @@ def main(argv=None):
          Level(os.path.join(args.ckpt_dir, "disk"),
                interval=args.ckpt_every * 4, keep_n=2, shards=2,
                parity=True)],
-        scrutiny_fn=scrutiny_fn, device=device)
+        scrutiny_fn=scrutiny_fn, soundness_check=soundness_check,
+        device=device)
 
     start = 0
     losses = []

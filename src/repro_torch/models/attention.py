@@ -66,9 +66,9 @@ def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor,
     diff = q_pos[..., :, None] - k_pos[..., None, :]
     ok = torch.ones(diff.shape, dtype=torch.bool, device=diff.device)
     if causal:
-        ok &= diff >= 0
+        ok = ok & (diff >= 0)
     if window is not None:
-        ok &= diff < window
+        ok = ok & (diff < window)
     zero = torch.zeros((), dtype=torch.float32, device=diff.device)
     return torch.where(ok, zero, _NEG)
 

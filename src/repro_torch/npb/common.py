@@ -25,7 +25,8 @@ import torch
 
 from repro_torch import _tree
 from repro_torch._tensors import resolve_device, to_host
-from repro_torch.core import CriticalityReport, ScrutinyConfig, scrutinize
+from repro_torch.core import (CriticalityReport, ScrutinyConfig,
+                              participation, scrutinize)
 from repro_torch.kernels.mask_pack import ops as mask_ops
 
 EPSILON = 1e-8  # NPB verification tolerance
@@ -59,10 +60,13 @@ class Benchmark:
                           config=config or ScrutinyConfig(),
                           device=self.device)
 
-    def participation(self, config: Optional[ScrutinyConfig] = None):
-        raise NotImplementedError(
-            "participation (structural read masks, core/taint.py) is not "
-            "ported yet: ROADMAP Queue 1, item 8")
+    def participation(self, config: Optional[ScrutinyConfig] = None
+                      ) -> CriticalityReport:
+        """Structural read-participation masks (paper Table II
+        semantics)."""
+        return participation(self.resume, self.checkpoint_state(),
+                             config=config or ScrutinyConfig(),
+                             device=self.device)
 
 
 def verify_restart(bench: Benchmark, report: CriticalityReport,

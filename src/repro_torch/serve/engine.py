@@ -48,6 +48,7 @@ class Engine:
         self.params = params
         self.max_len = int(max_len)
         self._compute = model.compute_params(cfg, params)
+        self._resume_fns: Dict[int, Any] = {}
 
     def prefill(self, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Prefill ``batch["tokens"]`` (B, T) int32 → (last-position logits
@@ -116,7 +117,13 @@ class Engine:
         significant bits) two such terms cancel to exactly zero often
         enough that, among the millions of elements of a full-width cache,
         some critical element reads as uncritical in every probe.  In f32
-        the sum is rounded once, at the leaf."""
+        the sum is rounded once, at the leaf.
+
+        One function per ``n_steps`` for the engine's life, so caches kept
+        per function (the shared trace) hit across scrutinies."""
+        if n_steps in self._resume_fns:
+            return self._resume_fns[n_steps]
+        cfg, compute = self.cfg, self._compute    # no cycle through self
 
         def fn(state):
             named, treedef = _tree.flatten_with_names(state["cache"])
@@ -125,11 +132,11 @@ class Engine:
             logits_all = []
             for _ in range(n_steps):
                 logits, cache = model.decode_step(
-                    self.cfg, self._compute, s["cache"], s["tokens"],
-                    s["pos"])
+                    cfg, compute, s["cache"], s["tokens"], s["pos"])
                 s = {"cache": cache, "pos": s["pos"] + 1,
                      "tokens": _next_tokens(logits)}
                 logits_all.append(logits)
             return {"logits": torch.stack(logits_all)}
 
+        self._resume_fns[n_steps] = fn
         return fn

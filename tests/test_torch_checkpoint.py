@@ -491,5 +491,8 @@ def test_single_device_sharding_matches_reference(dtype, frac):
     out_t, h_t = t_sh.scatter_sharded_payload(p_t, m, leaf_np.shape,
                                               str(leaf_np.dtype), "cpu",
                                               fill=1)
-    assert tuple(out_t.shape) == leaf_np.shape and h_t == h_r
+    # with no critical element the port moves no mask words (the
+    # reference moves its whole bitmap)
+    assert tuple(out_t.shape) == leaf_np.shape
+    assert h_t == (h_r if m.any() else 0)
     assert to_host(out_t).tobytes() == np.asarray(out_r).tobytes()

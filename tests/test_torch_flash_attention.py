@@ -12,9 +12,11 @@ The backward: the plain path's gradients (autograd through
 ``flash_attention_ref``) equal ``jax.grad`` of the reference's
 ``flash_attention_ref``, which is what the reference trains with (through
 XLA; K6 has no backward there), within 2e-5 of each gradient's largest
-magnitude in f32.  The autograd Function that carries the CUDA kernels on
-the card is driven with stand-ins of the kernels built from the plain
-version, under plain autograd and ``torch.func.vjp`` (the scrutiny).
+magnitude in f32.  The autograd Function that carries the kernels' custom
+ops (``repro_torch::flash_attention`` and its backward; on CPU tensors
+their implementations are the plain version) is driven under plain
+autograd and ``torch.func.vjp`` (the scrutiny), its calls counted at the
+dispatcher.
 
 The controls in K6's order (``ref.flash_attention_tiled`` and
 ``ref.TiledAttention``, over the kernels' key tiles in f32), which
@@ -155,32 +157,25 @@ def test_plain_gradients_match_reference_grad(case):
                                    atol=2e-5 * np.abs(w).max(), rtol=0)
 
 
-def _stand_in_forward(q, k, v, *, scale, causal, window, attn_cap,
-                      with_lse=False):
-    K.LAUNCHES["flash_attention"] += 1
-    o = flash_ref_t(q, k, v, scale=scale, causal=causal, window=window,
-                    attn_cap=attn_cap)
-    return (o, torch.zeros(q.shape[0], q.shape[2], q.shape[1]), None) \
-        if with_lse else o
+def _count_ops(monkeypatch):
+    """Counts the calls of the entry's two custom ops by name."""
+    calls = {}
+    for name in ('attention_op', 'attention_backward_op'):
+        op = getattr(ops, name)
 
+        def counted(*args, op=op, name=name):
+            calls[name] = calls.get(name, 0) + 1
+            return op(*args)
 
-def _stand_in_backward(q, k, v, o, lse, do, *, scale, causal, window,
-                       attn_cap):
-    K.LAUNCHES["flash_attention_backward"] += 1
-    with torch.enable_grad():
-        live = [t.detach().requires_grad_() for t in (q, k, v)]
-        out = flash_ref_t(*live, scale=scale, causal=causal, window=window,
-                          attn_cap=attn_cap)
-        return torch.autograd.grad(out, live, do)
+        monkeypatch.setattr(ops, name, counted)
+    return calls
 
 
 def test_autograd_function_under_torch_func(monkeypatch):
-    """``FlashAttention`` with stand-in kernels: its gradient equals
-    autograd's through the plain version, under plain autograd and
-    ``torch.func.vjp``, and the backward goes through the backward
-    kernels' Function."""
-    monkeypatch.setattr(K, "flash_attention", _stand_in_forward)
-    monkeypatch.setattr(K, "flash_attention_backward", _stand_in_backward)
+    """``FlashAttention`` on CPU tensors (the custom ops' plain
+    implementations): its gradient equals autograd's through the plain
+    version, under plain autograd and ``torch.func.vjp``, and the forward
+    and backward go through the custom ops."""
     q, k, v = (state_from_numpy(a, "cpu").double()
                for a in _qkv(2, 21, 4, 2, 8, "float32", seed=9, Dv=6))
     kw = dict(scale=0.3, causal=True, window=6, attn_cap=4.0)
@@ -193,7 +188,7 @@ def test_autograd_function_under_torch_func(monkeypatch):
     want = torch.func.grad(
         lambda q, k, v: (flash_ref_t(q, k, v, **kw) ** 2).sum(),
         argnums=(0, 1, 2))(q, k, v)
-    K.reset_launches()
+    calls = _count_ops(monkeypatch)
     _, vjp = torch.func.vjp(loss, q, k, v)
     got_vjp = vjp(torch.ones((), dtype=torch.float64))
     live = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -201,35 +196,35 @@ def test_autograd_function_under_torch_func(monkeypatch):
     for got in (got_vjp, got_plain):
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, atol=1e-9, rtol=1e-9)
-    assert K.LAUNCHES == {"flash_attention": 2,
-                          "flash_attention_backward": 2}
+    assert calls == {"attention_op": 2, "attention_backward_op": 2}
 
 
 def test_card_route_writes_lse_only_for_autograd(monkeypatch):
-    """On the card, only a call that autograd can reach writes the row
-    log-sum-exp: one under ``no_grad`` or on inputs that need no gradient
-    (the serving prefill) runs the forward kernel alone; one under
-    ``torch.func.vjp`` or on inputs that require grad goes through
-    ``FlashAttention``.  Driven on CPU tensors with stand-in kernels."""
-    asked = []
-
-    def forward(*args, with_lse=False, **kw):
-        asked.append(with_lse)
-        return _stand_in_forward(*args, with_lse=with_lse, **kw)
-
-    monkeypatch.setattr(K, "flash_attention", forward)
-    monkeypatch.setattr(K, "flash_attention_backward", _stand_in_backward)
+    """Only a call that autograd can reach asks the forward op for the row
+    log-sum-exp (which the card writes for the backward): one under
+    ``no_grad`` or on inputs that need no gradient (the serving prefill)
+    runs the forward op alone; one under ``torch.func.vjp`` or on inputs
+    that require grad goes through ``FlashAttention``.  Driven on CPU
+    tensors, the forward op's ``with_lse`` argument recorded."""
     q, k, v = (state_from_numpy(a, "cpu")
                for a in _qkv(1, 9, 2, 1, 8, "float32", seed=3))
     args = (0.3, True, None, None)
     want = flash_ref_t(q, k, v, scale=0.3)
+    asked = []
+    op = ops.attention_op
+
+    def forward(*a):
+        asked.append(a[7])
+        return op(*a)
+
+    monkeypatch.setattr(ops, "attention_op", forward)
     with torch.no_grad():
         live = [t.clone().requires_grad_() for t in (q, k, v)]
-        got = [ops._on_card(*live, *args),
-               torch.func.vjp(lambda q, k, v: ops._on_card(q, k, v, *args),
+        got = [ops._route(*live, *args),
+               torch.func.vjp(lambda q, k, v: ops._route(q, k, v, *args),
                               q, k, v)[0]]
-    got.append(ops._on_card(q, k, v, *args))
-    got.append(ops._on_card(*live, *args))
+    got.append(ops._route(q, k, v, *args))
+    got.append(ops._route(*live, *args))
     assert asked == [False, True, False, True]
     for o in got:
         torch.testing.assert_close(o, want, atol=0, rtol=0)

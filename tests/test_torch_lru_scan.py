@@ -6,10 +6,12 @@ reference's ``lru_scan_ref`` and its Pallas kernel in interpret mode, and
 its gradients (autograd through the loop) with ``jax.vjp`` of
 ``lru_scan_ref``.  ``rglru_train`` runs the recurrence through it where
 the reference runs ``lax.associative_scan``: the same recurrence in
-another association order.  The autograd Function that carries the CUDA
-kernels on the card is driven here with stand-ins of the kernels built
-from the plain version, under plain autograd, ``torch.func.vjp`` (the
-scrutiny) and a ``torch.func.grad`` nested inside it.
+another association order.  The autograd Function that carries the
+kernels' custom ops (``repro_torch::lru_scan`` and its backward; on CPU
+tensors their implementations are the plain version) is driven under
+plain autograd, ``torch.func.vjp`` (the scrutiny) and a
+``torch.func.grad`` nested inside it, and every forward and backward is
+counted at the dispatcher.
 
 Inputs are made with numpy from a seed and handed to both packages.
 Tolerances: f32 1e-5 (atol and rtol: one rounding a step, in another
@@ -51,7 +53,6 @@ from repro.kernels.lru_scan.ref import lru_scan_ref as r_lru_scan_ref
 from repro.models import recurrent as r_rec
 from repro_torch.configs import get_config
 from repro_torch.convert import state_from_numpy
-from repro_torch.kernels.lru_scan import kernel as K
 from repro_torch.kernels.lru_scan import ops
 from repro_torch.kernels.lru_scan.ref import (
     lru_scan_backward_chunked_ref, lru_scan_chunked_ref, lru_scan_ref)
@@ -112,36 +113,26 @@ def test_plain_k7_gradients_match_reference_vjp(h0):
                                    rtol=1e-5)
 
 
-def _stand_in_forward(a, b, h0=None):
-    K.LAUNCHES["lru_scan"] += 1
-    return lru_scan_ref(a, b, h0)
+def _count_ops(monkeypatch):
+    """Counts the calls of the entry's two custom ops by name."""
+    calls = {}
+    for name in ('scan_op', 'scan_backward_op'):
+        op = getattr(ops, name)
 
+        def counted(*args, op=op, name=name):
+            calls[name] = calls.get(name, 0) + 1
+            return op(*args)
 
-def _stand_in_backward(a, h, h0, dh):
-    """The backward kernel's recurrence, written out in torch."""
-    K.LAUNCHES["lru_scan_backward"] += 1
-    T = a.shape[1]
-    g = torch.zeros(a[:, 0].shape, dtype=torch.float32)
-    a_next = torch.zeros_like(g)
-    da, db = torch.empty_like(a), torch.empty_like(a)
-    for t in range(T - 1, -1, -1):
-        g = dh[:, t].float() + a_next * g
-        db[:, t] = g.to(a.dtype)
-        h_prev = h[:, t - 1].float() if t else (
-            torch.zeros_like(g) if h0 is None else h0.float())
-        da[:, t] = (g * h_prev).to(a.dtype)
-        a_next = a[:, t].float()
-    return da, db, None if h0 is None else (a_next * g).to(h0.dtype)
+        monkeypatch.setattr(ops, name, counted)
+    return calls
 
 
 @pytest.mark.parametrize("h0", [True, False], ids=["h0", "zeros"])
 def test_autograd_function_under_torch_func(monkeypatch, h0):
-    """``LruScan`` with stand-in kernels: its gradient equals autograd's
-    through the plain version under plain autograd, ``torch.func.vjp`` and
-    a ``torch.func.grad`` nested in a vjp, and every backward goes through
-    the backward kernel's Function."""
-    monkeypatch.setattr(K, "lru_scan", _stand_in_forward)
-    monkeypatch.setattr(K, "lru_scan_backward", _stand_in_backward)
+    """``LruScan`` on CPU tensors (the custom ops' plain implementations):
+    its gradient equals autograd's through the plain version under plain
+    autograd, ``torch.func.vjp`` and a ``torch.func.grad`` nested in a
+    vjp, and every forward and backward goes through the custom ops."""
     a, b, *rest = (t.double() for t in _port(_inputs(2, 9, 6, seed=5,
                                                      h0=h0)))
     args = (a, b) + tuple(rest)
@@ -151,13 +142,11 @@ def test_autograd_function_under_torch_func(monkeypatch, h0):
 
     argnums = tuple(range(len(args)))
     want = torch.func.grad(loss(lru_scan_ref), argnums=argnums)(*args)
-    K.reset_launches()
     kernel_loss = loss(ops.LruScan.apply)
+    calls = _count_ops(monkeypatch)
     got_func = torch.func.grad(kernel_loss, argnums=argnums)(*args)
     _, vjp = torch.func.vjp(kernel_loss, *args)
     got_vjp = vjp(torch.ones((), dtype=torch.float64))
-    live = [t.clone().requires_grad_() for t in args]
-    got_plain = torch.autograd.grad(kernel_loss(*live), live)
 
     def nested(*x):   # a train step's gradient inside the scrutiny's vjp,
         torch.func.grad(kernel_loss)(*x)   # not reaching the output
@@ -165,10 +154,12 @@ def test_autograd_function_under_torch_func(monkeypatch, h0):
 
     _, vjp2 = torch.func.vjp(nested, *args)
     got_nested = vjp2(torch.ones((), dtype=torch.float64))
+    live = [t.clone().requires_grad_() for t in args]
+    got_plain = torch.autograd.grad(kernel_loss(*live), live)
     for got in (got_func, got_vjp, got_plain, got_nested):
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-6)
-    assert K.LAUNCHES == {"lru_scan": 5, "lru_scan_backward": 5}
+    assert calls == {"scan_op": 5, "scan_backward_op": 5}
 
     def second(*x):   # a second derivative through the kernel raises
         g = torch.func.grad(kernel_loss)(*x)

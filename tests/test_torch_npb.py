@@ -297,9 +297,14 @@ def test_step_directory_byte_identical(runs, tmp_path, name, engine):
 
 
 def test_participation_waits_for_item_8(runs):
-    _, _, tb, _ = runs["bt"]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tb.participation()
+    """Item 8 has landed: ``Benchmark.participation`` gives the
+    reference's masks (all eight programs: ``tests/test_torch_static.py``
+    and ``tests/test_torch_taint.py``)."""
+    rb, _, tb, _ = runs["bt"]
+    got, want = tb.participation(), rb.participation()
+    for name, leaf in want.leaves.items():
+        np.testing.assert_array_equal(got[name].mask, leaf.mask)
+    assert (got["u"].uncritical, got["u"].total) == (1500, 10140)
 
 
 def test_get_benchmark_defaults_to_the_card(monkeypatch):

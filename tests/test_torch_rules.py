@@ -342,7 +342,8 @@ def test_pack_and_scatter_from_words_on_the_card(card, dtype, frac, n):
         assert _same_bytes(p, p_r) and _same_bytes(c, c_r)
         pay, cg = ops.pack_group([head, x], [head_w, words],
                                  [head.shape[0], total])
-        assert K.LAUNCHES["pack"] == before + 3
+        # a group leaf with no critical element launches no K2
+        assert K.LAUNCHES["pack"] == before + (3 if total else 2)
         assert _same_bytes(pay[head.shape[0]:], pay_r)
         assert _same_bytes(cg[-c_r.shape[0]:], c_r)
         if total:

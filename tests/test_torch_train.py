@@ -412,8 +412,18 @@ def test_restart_equivalence(tmp_path):
 
 @pytest.mark.parametrize("flag", ["--verify-static", "--coordinated"])
 def test_unported_launcher_paths_raise(flag, tmp_path):
+    """``--coordinated`` (item 10) raises; ``--verify-static`` (item 8,
+    ported) runs: two steps and a gated, pruned scrutiny here, its
+    checkpoints held in ``tests/test_torch_static.py``."""
+    args = [flag, "--ckpt-dir", str(tmp_path), "--device", "cpu"]
+    if flag == "--verify-static":
+        losses = launch.main(args + ["--steps", "2", "--batch", "2",
+                                     "--seq", "16", "--ckpt-every", "2",
+                                     "--log-every", "100"])
+        assert len(losses) == 2 and np.isfinite(losses).all()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        launch.main([flag, "--ckpt-dir", str(tmp_path), "--device", "cpu"])
+        launch.main(args)
 
 
 @pytest.fixture
