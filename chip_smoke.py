@@ -10,7 +10,12 @@ the card, then drives the port's four paths: the paper's pipeline
 unchanged report keeps the chain) and a precision-tiered round trip; the
 serving path (phi4-mini-3.8b at full width and depth: prefill through
 flash attention, decode, KV scrutiny, base + delta snapshots, restore,
-exact continuation); the paper's NPB evaluation (the eight class-S
+exact continuation); the rest of the model families served the same way
+(olmoe-1b-7b at full width and depth, deepseek-v3-671b's MLA and MoE,
+whisper-tiny's encoder-decoder, qwen2-vl-7b's M-RoPE, the last three cut
+in depth; flash attention at each one's shape against its plain version,
+and prefill + decode against each model's own full forward); the paper's
+NPB evaluation (the eight class-S
 programs: AD scrutiny in f64, participation over the traced aten graph
 and its Table II, FT y included, the static analyzer's soundness check
 and the pruned sweep, the §IV-C restart from both masks through the tiled
@@ -1127,6 +1132,351 @@ def phase_serving(root: str):
 
 
 # ----------------------------------------------------------------------------
+# phase 9: the rest of the model families, served
+# ----------------------------------------------------------------------------
+
+# (arch, changes to its published config, the cuts of scale they make)
+FAMILIES = (
+    ("olmoe-1b-7b", {}, []),
+    ("deepseek-v3-671b", {"n_layers": 4, "param_dtype": "bfloat16"},
+     ["depth 61 -> 4 layers (3 dense, 1 MoE: 256 routed + 1 shared)",
+      "bf16 parameters (f32 would take 60.5 GB)"]),
+    ("whisper-tiny", {}, []),
+    ("qwen2-vl-7b", {"n_layers": 8}, ["depth 28 -> 8 layers"]),
+)
+FAM_B, FAM_T, FAM_WHISPER_T = 4, 1024, 64
+FAM_PATCHES = 256            # launch/specs.py:19, a 16 x 16 grid
+FAM_STEPS = 4                # greedy steps before the base save
+# Prefill + decode at text position T against the model's own full forward
+# (``full_logits`` over T + 1 tokens), both in f32 compute on the same
+# parameters: in bf16 a random-init stack amplifies one-ulp differences
+# (phase 6), here only summation order differs.  Bound on max |Δ|, times
+# the largest |logit| (floored at 1).  An MoE layer's routing is a step
+# function of its input: where two paths' f32 round-off puts a token's
+# top-k boundary on either side of a near-tie (olmoe: 16 layers x 4 x 1024
+# decisions, and on an H100 the last position's alone differed in 3 of the
+# 16 layers), that token's K/V and every later position differ by a
+# whole expert's share.  So the prefill and the decode replay the full
+# forward's routing (:class:`RoutingPin`); the gap without it is printed.
+# f32 round-off still grows with depth through a random-init stack: on an
+# H100, deepseek (4 layers) and qwen2-vl (8) read 1.8e-5 and 2.2e-5 of the
+# largest |logit|, olmoe (16, pinned) 8.9e-4; a cache, position or mask
+# fault moves logits by O(1) of it (the reference's VLM pos fault: 1.46 on
+# logits under 0.90).
+FAM_CONSISTENCY_TOL = 2e-3
+
+
+class RoutingPin:
+    """Records each MoE layer's top-k expert ids at every position of one
+    forward (``moe.top_k`` wrapped), then replays them in later forwards
+    of the same sequence from position ``offset`` on, the values gathered
+    from their own probabilities: the same routing decisions, so that the
+    rest of two forwards can be compared."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.real, self.log = moe, moe.top_k, []
+        self.offset, self.layer = None, 0
+
+    def replay(self, offset: int) -> "RoutingPin":
+        self.offset, self.layer = offset, 0
+        return self
+
+    def __enter__(self):
+        def top_k(probs, k):
+            if self.offset is None:
+                vals, idx = self.real(probs, k)
+                self.log.append(idx)
+                return vals, idx
+            rec = self.log[self.layer % len(self.log)]
+            self.layer += 1
+            idx = rec[:, self.offset:self.offset + probs.shape[1]]
+            return probs.gather(-1, idx), idx
+
+        self.moe.top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.top_k = self.real
+
+
+def family_flops(q, k, v, causal) -> float:
+    """K6's products (``csrc/flash_attention.cu`` bounds): S and P.V."""
+    B, Tq, H, D = q.shape
+    Tk, Dv = k.shape[1], v.shape[-1]
+    pairs = Tq * (Tq + 1) / 2 if causal else Tq * Tk
+    return 2.0 * B * H * pairs * (D + Dv)
+
+
+def _family_batch(cfg, gen, T):
+    """B prompts of T + 1 tokens (the last one for the consistency check),
+    with frames (whisper) or patch embeddings and their M-RoPE positions
+    (qwen2-vl: the temporal axis counts along the sequence, height and
+    width run over the 16 x 16 patch grid, then follow the text)."""
+    b = {"tokens": torch.randint(0, cfg.vocab, (FAM_B, T + 1), generator=gen,
+                                 device=DEV, dtype=torch.int32)}
+    if cfg.enc_dec:
+        b["frames"] = torch.randn((FAM_B, cfg.encoder_len, cfg.d_model),
+                                  generator=gen, device=DEV)
+    if cfg.family == "vlm":
+        P, side = FAM_PATCHES, int(FAM_PATCHES ** 0.5)
+        b["patch_embeds"] = torch.randn((FAM_B, P, cfg.d_model),
+                                        generator=gen, device=DEV)
+        t = torch.arange(P + T + 1, device=DEV)
+        grid = torch.arange(P, device=DEV)
+        pos = torch.stack([t, torch.cat([grid // side, t[P:]]),
+                           torch.cat([grid % side, t[P:]])], -1)
+        b["positions"] = pos.expand(FAM_B, -1, -1).to(torch.int32)
+    return b
+
+
+def _family_head(batch, T):
+    """The batch cut to its first T text tokens."""
+    out = dict(batch, tokens=batch["tokens"][:, :T].contiguous())
+    if "positions" in batch:
+        out["positions"] = batch["positions"][:, :FAM_PATCHES + T]
+    return out
+
+
+def reckon_peak(cfg, params, B, max_len, T) -> dict:
+    """The phase's peak device memory from the arithmetic, before it runs:
+    the parameters, their compute-dtype copy (none when they are in it
+    already), the engine states held (three caches: the prefill's, the
+    running state and the saved one), the scrutiny (the cache in f32,
+    once as the input and twice as the two decode steps' outputs that the
+    vjp keeps, plus the f32 max-accumulators: four f32 caches), the f32
+    full forward's logits (B, T + 1, V), and, for parameters that are not
+    f32, the largest leaf in f32 (the initializer draws in f32 before the
+    cast; the f32 forward casts each weight at use)."""
+    from repro_torch.models import init_cache
+    leaves = _tree.leaves(params)
+    pbytes = sum(t.nbytes for t in leaves)
+    compute = (0 if cfg.param_dtype == cfg.dtype else
+               sum(t.numel() * 2 for t in leaves))
+    cache = sum(t.nbytes for t in _tree.leaves(
+        init_cache(cfg, B, max_len, device="meta")))
+    terms = {"params": pbytes, "compute copy": compute,
+             "states": 3 * cache, "scrutiny": 4 * 2 * cache,
+             "f32 logits": B * (T + 1) * cfg.vocab * 4,
+             "f32 casts": (0 if cfg.param_dtype == "float32" else
+                           4 * max(t.numel() for t in leaves))}
+    terms["total"] = sum(terms.values())
+    return {k: round(v / 2 ** 30, 2) for k, v in terms.items()}
+
+
+def serve_family(arch, changes, reduced, root, seed):
+    """One model's serving path → (launches, (arch, q, k, v, kwargs) of
+    its first K6 call at the phase's shape).  Launches are counted from 0
+    just before the
+    prefill and read after the continuation; the comparisons with the
+    plain versions come after that."""
+    from repro_torch import (CheckpointManager, Engine, Level, ScrutinyConfig,
+                             get_config, scrutinize)
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import (count_params, decode_step, full_logits,
+                                    init_params, prefill)
+
+    cfg = dataclasses.replace(get_config(arch), **changes)
+    T = FAM_WHISPER_T if cfg.enc_dec else FAM_T
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()     # earlier phases' tensors
+    params = init_params(cfg, gen)
+    predicted = reckon_peak(cfg, params, FAM_B, SERVE_MAX_LEN, T)
+    eng = Engine(cfg, params, SERVE_MAX_LEN, device=DEV)
+    full = _family_batch(cfg, gen, T)
+    batch = _family_head(full, T)
+    print(f"families: {arch}: {cfg.n_layers} layers d_model {cfg.d_model} "
+          f"heads {cfg.n_heads}/{cfg.n_kv_heads} vocab {cfg.vocab}; "
+          f"{count_params(params)} parameters ({cfg.param_dtype}, compute "
+          f"{cfg.dtype}); B={FAM_B} T={T} max_len={SERVE_MAX_LEN}; "
+          f"reduced {json.dumps(reduced)}; peak reckoned "
+          f"{json.dumps(predicted)} GiB")
+
+    real_fa = attn_mod.flash_attention
+    k6_in = {}
+
+    def capture(q, k, v, **kw):
+        # the phase's K6 shape: whisper's encoder (non-causal), the first
+        # causal call elsewhere
+        if not k6_in and (kw["causal"] is False or not cfg.enc_dec):
+            k6_in.update(q=q, k=k, v=v, kw=kw)
+        return real_fa(q, k, v, **kw)
+
+    K.reset_launches()
+    FK.reset_launches()
+    # ---- the serving path: counts from 0 here, read at the end ----------
+    attn_mod.flash_attention = capture
+    try:
+        (logits, state), prefill_s = synced(lambda: eng.prefill(batch))
+    finally:
+        attn_mod.flash_attention = real_fa
+    want_pos = T + (FAM_PATCHES if cfg.family == "vlm" else 0)
+    check(int(state["pos"]) == want_pos,
+          f"{arch}: pos {int(state['pos'])} after the prefill, not "
+          f"{want_pos}")
+    decode_ms = []
+    for _ in range(FAM_STEPS):
+        (state, _), dt = synced(lambda: eng.step(state))
+        decode_ms.append(dt * 1e3)
+    state_bytes = sum(v.nbytes for v in _leaves(state).values())
+    pos = int(state["pos"])
+    probe = dict(state, pos=torch.tensor(pos + HEADROOM, dtype=torch.int32,
+                                         device=DEV))
+    rep, scrutiny_s = synced(lambda: scrutinize(
+        eng.resume_fn(HORIZON), probe, config=ScrutinyConfig(probes=2),
+        device=DEV))
+    crit = pos + HEADROOM
+    for name, leaf in _leaves(state).items():
+        if name.endswith(("/xk", "/xv")) or not name.startswith("cache/"):
+            check(rep[name].all_critical, f"{arch}: {name} must be all "
+                  f"critical")
+            continue
+        sel = (torch.arange(leaf.shape[2], device=DEV) < crit).view(
+            (1, 1, -1) + (1,) * (leaf.dim() - 3))
+        bad = torch.nonzero(rep[name].device_mask().view(leaf.shape)
+                            != sel.expand(leaf.shape))
+        check(bad.numel() == 0, f"{arch}: mask of {name} differs from slot "
+              f"< {crit} at {bad.shape[0]} elements, first {bad[:4].tolist()}")
+    crit_bytes = sum(rep[n].critical * _leaves(state)[n].element_size()
+                     for n in rep.leaves)
+    rep_reads_s = rep.stats["prepass_reads_s"]
+
+    mgr = CheckpointManager([Level(root, keep_n=2, max_chain=1)],
+                            scrutiny_fn=lambda s: rep, save_mode="device",
+                            restore_mode="device", device=DEV)
+    t0 = time.perf_counter()
+    mgr.save(1, state, block=False)
+    stats1 = mgr.wait()
+    torch.cuda.synchronize()
+    save_s = time.perf_counter() - t0
+    disk = sum(os.path.getsize(os.path.join(root, "step_1", f))
+               for f in os.listdir(os.path.join(root, "step_1")))
+    written = pos                            # the slot the next step writes
+    state, _ = eng.step(state)
+    mgr.save(2, state, block=True)
+    check(mgr.last_save_stats["levels"][root]["kind"] == "delta",
+          f"{arch}: step 2 must be a delta")
+    (step, restored), restore_s = synced(
+        lambda: mgr.restore(_empty_like(state)))
+    h2d = mgr.last_restore_stats["h2d_bytes"]
+    mgr.close()
+    check(step == 2, f"{arch}: restored step {step}, not 2")
+    toks, want = _continue(eng, state, CONTINUE)
+    r_toks, r_lg = _continue(eng, restored, CONTINUE)
+    check(torch.equal(toks, r_toks) and torch.equal(want, r_lg),
+          f"{arch}: decoding from the restored step 2 differs")
+    launches = {**{k: K.LAUNCHES[k] for k in CKPT_KERNELS},
+                "flash_attention": FK.LAUNCHES["flash_attention"]}
+    # ---- end of the serving path ---------------------------------------
+    check(all(v > 0 for v in launches.values()),
+          f"{arch}: a kernel of its serving path was never launched: "
+          f"{launches}")
+    # the save moved the critical payload and the restore brought it back
+    check(crit_bytes <= stats1["d2h_bytes"] <= crit_bytes + state_bytes // 8
+          and crit_bytes <= h2d <= crit_bytes + state_bytes // 8,
+          f"{arch}: d2h {stats1['d2h_bytes']} / h2d {h2d} B against "
+          f"{crit_bytes} B critical (at most one mask bit an element more)")
+    # the delta holds the one slot the step wrote, in each slot leaf
+    chunk = ops.DELTA_CHUNK_BYTES
+    for name, idx in _changed_chunks(root, 2).items():
+        leaf = _leaves(state).get(name)
+        if name.startswith("cache/") and not name.endswith(("/xk", "/xv")):
+            row = int(np.prod(leaf.shape[3:])) * leaf.element_size()
+            rows = leaf.shape[0] * leaf.shape[1]
+            start = (np.arange(rows) * crit + written) * row
+            want_idx = np.unique(np.concatenate([
+                np.arange(a // chunk, (a + row - 1) // chunk + 1)
+                for a in start]))
+            check(np.array_equal(np.sort(idx), want_idx),
+                  f"{arch}: delta of {name}: {idx.size} chunks, not the "
+                  f"{want_idx.size} of slot {written}")
+        else:
+            check(idx.size <= 1 and (name != "pos" or idx.size == 1),
+                  f"{arch}: delta of {name}: {idx.tolist()}")
+    del restored, rep
+    # K6 against its plain version at the phase's shape
+    q, k, v, kw = (k6_in[n] for n in ("q", "k", "v", "kw"))
+    k6_err = fa_err(real_fa(q, k, v, **kw),
+                    flash_attention_ref(q, k, v, **kw), fa_tol(q.dtype),
+                    f"{arch}: K6 at {tuple(q.shape)}/{tuple(v.shape)}")
+    # prefill + decode against the full forward at position T, in f32
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    del eng, state, toks, want, r_toks, r_lg, logits
+    torch.cuda.empty_cache()
+    pos_t = torch.tensor(want_pos, dtype=torch.int32, device=DEV)
+
+    def prefill_decode():
+        _, cache = prefill(cfg32, params, batch, SERVE_MAX_LEN)
+        return decode_step(cfg32, params, cache, full["tokens"][:, T:],
+                           pos_t)[0]
+
+    with torch.no_grad():
+        with RoutingPin() as pin:                  # records the routing
+            full_lg = full_logits(cfg32, params, full)[:, -1]
+        free = prefill_decode() if pin.log else None
+        if pin.log:
+            with pin.replay(0):
+                _, cache = prefill(cfg32, params, batch, SERVE_MAX_LEN)
+            with pin.replay(T):
+                got = decode_step(cfg32, params, cache,
+                                  full["tokens"][:, T:], pos_t)[0]
+            del cache
+        else:
+            got = prefill_decode()
+    gap = float((got - full_lg).abs().max())
+    top = max(float(full_lg.abs().max()), 1.0)
+    check(gap <= FAM_CONSISTENCY_TOL * top,
+          f"{arch}: prefill + decode differs from the full forward at "
+          f"position T by {gap} (largest |logit| {top})")
+    free_gap = (f"; {float((free - full_lg).abs().max()):.3e} without the "
+                f"pinned routing" if free is not None else "")
+    del got, full_lg, free, params
+    peak = torch.cuda.max_memory_allocated()
+    fig = {"prefill_s": round(prefill_s, 4),
+           "decode_ms": round(float(np.median(decode_ms)), 3),
+           "scrutiny_s": round(scrutiny_s, 4),
+           "prepass_reads_s": round(rep_reads_s, 4),
+           "save_s": round(save_s, 4),
+           "restore_s": round(restore_s, 4),
+           "disk_frac": round(disk / state_bytes, 6),
+           "d2h_frac": round(stats1["d2h_bytes"] / state_bytes, 6),
+           "h2d_frac": round(h2d / state_bytes, 6),
+           "state_bytes": state_bytes,
+           "peak_gib": round((peak - held) / 2 ** 30, 2),
+           "held_before_gib": round(held / 2 ** 30, 2),
+           "peak_reckoned_gib": predicted["total"]}
+    print(f"families: {arch}: {json.dumps(fig)}")
+    print(f"families: {arch}: K6 at q {tuple(q.shape)} v {tuple(v.shape)} "
+          f"causal={kw['causal']} within {fa_tol(q.dtype)} of the plain "
+          f"version (max |Δ| {k6_err:.6f}); f32 prefill + decode against "
+          f"the full forward at T: max |Δ| {gap:.3e} (bound "
+          f"{FAM_CONSISTENCY_TOL} x {top:.3f}){free_gap}; restored step 2 "
+          f"continues "
+          f"{CONTINUE} tokens bit-identically; launches "
+          f"{json.dumps(launches)}")
+    torch.cuda.empty_cache()
+    return launches, (arch, q, k, v, kw)
+
+
+def phase_families(root: str):
+    """Phase 9 → (launches summed over its models, K6's inputs a model)."""
+    t0 = time.perf_counter()
+    total, k6 = {}, []
+    for i, (arch, changes, reduced) in enumerate(FAMILIES):
+        launches, inputs = serve_family(arch, changes, reduced,
+                                        os.path.join(root, arch), 2029 + i)
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        k6.append(inputs)
+    print(f"families: launches {json.dumps(total)}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return total, k6
+
+
+# ----------------------------------------------------------------------------
 # phase 7: training recurrentgemma-2b at full width
 # ----------------------------------------------------------------------------
 
@@ -1808,7 +2158,7 @@ PEAK_BF16_FLOP_S = 989e12   # H100 SXM data sheet, dense
 PEAK_F32_FLOP_S = 67e12     # outside the tensor cores
 
 
-def sdpa_call(q, k, v):
+def sdpa_call(q, k, v, causal=True):
     """The library yardstick for K6 (timed here, never called by the
     port): PyTorch's fused attention on (B, H, T, D) transposes, made
     outside the timed region; K/V are repeated to H heads there where
@@ -1817,21 +2167,22 @@ def sdpa_call(q, k, v):
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     try:
         F.scaled_dot_product_attention(qt[:, :, :2], kt[:, :, :2],
-                                       vt[:, :, :2], is_causal=True,
+                                       vt[:, :, :2], is_causal=causal,
                                        enable_gqa=True)
         return lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
     except TypeError:
         g = q.shape[2] // k.shape[2]
         kr, vr = (t.repeat_interleave(g, dim=1) for t in (kt, vt))
         return lambda: F.scaled_dot_product_attention(qt, kr, vr,
-                                                      is_causal=True)
+                                                      is_causal=causal)
 
 
-def phase_timing(main, fa_in, k5_inputs) -> list:
+def phase_timing(main, fa_in, k5_inputs, fam_k6) -> list:
     """K1–K6 timed at the main path's and the prefill's shapes, K5 also on
     the NPB restart's groups (one a program) and, beside them, leaf by
-    leaf; main() fills in each row's launches."""
+    leaf, K6 also at phase 9's four shapes; main() fills in each row's
+    launches."""
     state, sel_w, rep = main["state"], main["sel_w"], main["rep"]
     w = state["w"]
     n = w.numel()
@@ -2014,6 +2365,23 @@ def phase_timing(main, fa_in, k5_inputs) -> list:
         print(f"time {r['name']}: kernel {r['ms']:.4f} ms{rate}, bound "
               f"{r['bound_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']}")
+    del k6, plain, lib
+    # K6 at phase 9's shapes, on each model's captured first-layer inputs
+    for arch, q, k, v, kw in fam_k6:
+        torch.cuda.empty_cache()
+        flops = family_flops(q, k, v, kw["causal"])
+        ms = median_ms(lambda: fa_ops.flash_attention(q, k, v, **kw))
+        plain_ms = median_ms(lambda: flash_attention_ref(q, k, v, **kw))
+        try:
+            lib_ms = f"{median_ms(sdpa_call(q, k, v, kw['causal'])):.4f}"
+        except RuntimeError as e:          # no SDPA backend for the shape
+            lib_ms = f"none ({str(e).splitlines()[0][:80]})"
+        print(f"time flash_attention {arch}: q {tuple(q.shape)} k "
+              f"{tuple(k.shape)} v {tuple(v.shape)} {str(q.dtype)} causal="
+              f"{kw['causal']}: kernel {ms:.4f} ms, "
+              f"{flops / ms / 1e9:.1f} TFLOP/s, bound "
+              f"{flops / PEAK_BF16_FLOP_S * 1e3:.4f} ms ({flops:.4g} "
+              f"operations), plain {plain_ms:.4f} ms, SDPA {lib_ms} ms")
     return rows
 
 
@@ -2152,15 +2520,17 @@ def main() -> None:
         launches, main_state = phase_main_path(os.path.join(tmp, "main"))
         phase_bench_bytes(os.path.join(tmp, "bench"))
         serve_launches, fa_in = phase_serving(os.path.join(tmp, "serve"))
+        fam_launches, fam_k6 = phase_families(os.path.join(tmp, "families"))
         npb_launches, k5_inputs = phase_npb(os.path.join(tmp, "npb"))
-        rows = phase_timing(main_state, fa_in, k5_inputs)
-        del main_state, fa_in, k5_inputs
+        rows = phase_timing(main_state, fa_in, k5_inputs, fam_k6)
+        del main_state, fa_in, k5_inputs, fam_k6
         train_launches, per_step, train_in, train_mask = phase_training(
             os.path.join(tmp, "train"))
     rows += phase_timing_training(train_launches, per_step, train_in)
     # every kernel's launches summed over the paths it runs on, each path
     # counted from 0 just before it and read just after
-    paths = {"main": launches, "serving": serve_launches, "npb": npb_launches,
+    paths = {"main": launches, "serving": serve_launches,
+             "families": fam_launches, "npb": npb_launches,
              "training": dict(train_launches, **train_mask)}
     for r in rows:
         r["launches"] = sum(p.get(r["name"], 0) for p in paths.values())

@@ -30,8 +30,9 @@ one backward sweep over the aten graph of ``fn``:
   freed once it has been propagated (all its readers come after it).
 - **Write-before-read is exact**: ``slice_scatter`` / ``select_scatter``
   / ``index_put`` clear the written window of the base, ``copy`` and
-  ``fill`` read nothing of the tensor they overwrite, and ``zeros_like``
-  and its kin read no value at all.
+  ``fill`` read nothing of the tensor they overwrite, nor do the random
+  fills (``uniform``, ``normal``, ``bernoulli`` with a float ``p``: a
+  dropout mask), and ``zeros_like`` and its kin read no value at all.
 - **Linear structural ops** (views, slices, ``cat``, ``roll``, ``sum``,
   ``cumsum``, ...) propagate exactly: the taint moves as a 0/1 cotangent
   would through the op's own vjp (the reference's ``_vjp_structural``);
@@ -98,6 +99,11 @@ _CREATORS = {
     aten.new_ones, aten.new_full, aten.rand, aten.randn, aten.rand_like,
     aten.randn_like, aten.randint, aten.randint_like, aten.linspace,
     aten.eye, aten.zero, aten.tensor}
+# Random fills (the functional forms of ``uniform_``, ``normal_``, ...)
+# overwrite their first input, whose values they never read; so does
+# ``bernoulli`` with a float ``p`` (dropout's mask).
+_RANDOM_FILLS = {aten.uniform, aten.normal_functional, aten.exponential,
+                 aten.geometric, aten.cauchy, aten.log_normal, aten.random}
 # Ops that hand out uninitialized memory: a read of it is an error.
 _UNINITIALIZED = {aten.empty, aten.empty_like, aten.new_empty,
                   aten.empty_strided, aten.new_empty_strided,
@@ -511,7 +517,8 @@ def classify_rule(node: fx.Node) -> str:
         return "fallback"
     if p in _UNINITIALIZED:
         return "uninitialized"
-    if p in _CREATORS:
+    if p in _CREATORS or p in _RANDOM_FILLS or \
+            node.target is aten.bernoulli.p:
         return "creator"
     if p in _IDENTITY:
         return "elementwise"

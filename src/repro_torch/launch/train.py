@@ -20,7 +20,11 @@ AD ⊆ static soundness check (``analysis.soundness_checker``) before it
 reduces a checkpoint.  The multi-host path (``--coordinated``,
 ``--coord-dir``: ROADMAP Queue 1 item 10) raises ``NotImplementedError``.
 
-``--preset smoke`` shrinks the model (``ArchConfig.reduced()``).
+``--preset smoke`` shrinks the model (``ArchConfig.reduced()``).  The MoE
+archs (``--arch olmoe-1b-7b``, ``deepseek-v3-671b``) train with the aux
+loss in their loss; at full width they wait for item 10's sharding
+(olmoe-1b-7b's 6.92 B parameters are 110 GB with f32 gradients and AdamW
+moments, more than one card holds).
 """
 
 from __future__ import annotations

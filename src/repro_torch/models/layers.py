@@ -1,5 +1,5 @@
 """Shared model layers (port of ``repro.models.layers``): norms,
-projections, embeddings, RoPE and FFNs.
+projections, embeddings, RoPE/M-RoPE and FFNs.
 
 Pure functions over nested-dict params.  Initializers draw from an
 explicit ``torch.Generator`` on its device (the reference's ``jax.random``
@@ -88,6 +88,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     freqs = torch.from_numpy(rope_freqs(d, theta).astype(np.float32)).to(
         x.device)                                             # (D/2,)
     angles = positions[..., None].float() * freqs             # (B, T, D/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int] = (2, 1, 1)) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.
+
+    x: (B, T, H, D); positions3: (B, T, 3) — temporal/height/width position
+    ids.  Frequency channels are split across the three axes in proportion
+    ``sections`` (t gets half, h/w a quarter each by default), the split
+    computed with numpy as the reference computes it.
+    """
+    d = x.shape[-1]
+    half = d // 2
+    freqs = torch.from_numpy(rope_freqs(d, theta).astype(np.float32)).to(
+        x.device)                                             # (half,)
+    total = sum(sections)
+    bounds = np.cumsum([half * s // total for s in sections])
+    chan_axis = np.zeros(half, np.int64)
+    chan_axis[bounds[0]:bounds[1]] = 1
+    chan_axis[bounds[1]:] = 2
+    # angle per channel uses the position id of its assigned axis
+    idx = torch.from_numpy(chan_axis).to(x.device)
+    pos = positions3.float().index_select(-1, idx)            # (B, T, half)
+    angles = pos * freqs
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)

@@ -9,18 +9,21 @@ directories carry the reference's leaf names and shapes, and converted
 parameters need no renaming.  The reference's ``lax.scan`` over a segment
 becomes a Python loop over per-layer views (``_unstack``).
 
-Ported: flavours ``g`` (global) and ``l`` (windowed) attention, ``r``
-(RG-LRU), ``m`` (mLSTM) and ``s`` (sLSTM), with a dense FFN or none, and
-text input (phi4-mini, gemma-7b, gemma2-27b, qwen1.5-32b,
-recurrentgemma-2b, xlstm-125m).  MoE, MLA, encoder-decoder and M-RoPE
-raise ``NotImplementedError``: they come with a later slice (ROADMAP
-Queue 1 item 9).  Rematerialization (``cfg.remat``) is the reference's XLA
+Every architecture of ``configs/`` is served: flavours ``g`` (global) and
+``l`` (windowed) attention, GQA or MLA (deepseek), ``r`` (RG-LRU), ``m``
+(mLSTM) and ``s`` (sLSTM); a dense FFN, MoE (olmoe, deepseek) or none;
+M-RoPE with a patch-embedding prefix (qwen2-vl); and the encoder-decoder
+(whisper: a non-causal encoder over ``frames``, cross attention in every
+decoder block).  Rematerialization (``cfg.remat``) is the reference's XLA
 knob and is not ported: the backward keeps every layer's activations.
 
 Batch contracts:
-  train:   {"tokens": (B,T) int32, "labels": (B,T) int32, ["mask"]} →
-           mean next-token cross-entropy (``loss_fn``)
-  prefill: {"tokens": (B,T) int32} → (last-position logits, cache)
+  train:   {"tokens": (B,T) int32, "labels": (B,T) int32, ["mask"],
+            ["positions" (B,P+T,3) int32], ["patch_embeds" (B,P,d) for
+            vlm], ["frames" (B,F,d) audio]} → mean next-token
+           cross-entropy plus the MoE aux loss (``loss_fn``)
+  prefill: the same minus labels → (last-position logits, cache at
+           position P + T: a VLM's patches come first)
   decode:  tokens (B,1) int32 + cache + pos (0-d int32) → (logits, cache)
 """
 
@@ -34,6 +37,7 @@ import torch
 from repro_torch import _tree
 from repro_torch._tensors import alloc_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec
 from repro_torch.models.layers import (apply_ffn, apply_norm, dtype_of,
                                        embed_init, init_ffn, init_norm,
@@ -58,20 +62,6 @@ def layer_kinds(cfg) -> List[Kind]:
             f = "n"
         kinds.append((fl, f))
     return kinds
-
-
-def _check_served(cfg) -> None:
-    """Raise for what the port does not have yet."""
-    what = [name for name, on in (("MoE", cfg.moe is not None),
-                                  ("MLA", cfg.mla is not None),
-                                  ("encoder-decoder", cfg.enc_dec),
-                                  ("M-RoPE", cfg.mrope)) if on]
-    if what:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(what)} not ported yet; repro_torch "
-            "runs the g/l/r/m/s layer flavours with a dense FFN and text "
-            "input, and the rest comes with a later slice (ROADMAP Queue 1 "
-            "item 9)")
 
 
 def plan_segments(kinds: List[Kind]) -> List[Tuple[Tuple[Kind, ...], int]]:
@@ -128,49 +118,99 @@ def _init_mixer(cfg, flavour: str, gen, **kw):
 
 
 def init_block(cfg, kind: Kind, gen, *, lead: Tuple[int, ...] = (),
-               device=None) -> Dict[str, Any]:
+               device=None, cross: bool = False) -> Dict[str, Any]:
     fl, ff = kind
     device = device or gen.device
+    kw = dict(lead=lead, device=device)
     p: Dict[str, Any] = {
-        "norm1": init_norm(cfg, lead=lead, device=device),
-        "mixer": _init_mixer(cfg, fl, gen, lead=lead, device=device),
+        "norm1": init_norm(cfg, **kw),
+        "mixer": _init_mixer(cfg, fl, gen, **kw),
     }
     if cfg.post_norm:
-        p["norm1_post"] = init_norm(cfg, lead=lead, device=device)
-    if ff == "d":
-        p["norm2"] = init_norm(cfg, lead=lead, device=device)
-        p["ffn"] = init_ffn(cfg, gen, lead=lead, device=device)
+        p["norm1_post"] = init_norm(cfg, **kw)
+    if cross:
+        p["norm_x"] = init_norm(cfg, **kw)
+        p["cross"] = attn.init_attention(cfg, gen, **kw)
+    if ff in ("d", "e"):
+        p["norm2"] = init_norm(cfg, **kw)
+        if ff == "d":
+            p["ffn"] = init_ffn(cfg, gen, **kw)
+        else:
+            p["moe"] = moe_mod.init_moe(cfg, gen, **kw)
         if cfg.post_norm:
-            p["norm2_post"] = init_norm(cfg, lead=lead, device=device)
+            p["norm2_post"] = init_norm(cfg, **kw)
     return p
 
 
-def _ffn_half(cfg, p, x):
-    if "ffn" in p:
+def _ffn_half(cfg, p, x, train=False):
+    """The FFN (or MoE) residual half → (x, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if "ffn" in p or "moe" in p:
         h = apply_norm(cfg, p["norm2"], x)
-        h = apply_ffn(cfg, p["ffn"], h)
+        if "moe" in p:
+            h, aux = moe_mod.apply_moe(cfg, p["moe"], h, train=train)
+        else:
+            h = apply_ffn(cfg, p["ffn"], h)
         if cfg.post_norm:
             h = apply_norm(cfg, p["norm2_post"], h)
         x = x + h
-    return x
+    return x, aux
+
+
+def _cross_half(cfg, p, x, enc_out, kv=None):
+    """Cross attention's residual half (whisper's decoder blocks); ``kv``:
+    the encoder output's cross K and V when the caller has them."""
+    if "cross" not in p:
+        return x
+    h = apply_norm(cfg, p["norm_x"], x)
+    return x + _cross_attend(cfg, p["cross"], h, enc_out, kv)
+
+
+def _cross_kv(cfg, p, enc_out):
+    """The encoder output's cross K and V, (B, F, K, hd) each, in its
+    dtype."""
+    B, S = enc_out.shape[:2]
+    hd = cfg.resolved_head_dim
+    dt = enc_out.dtype
+    return tuple((enc_out @ p[w].to(dt)).reshape(B, S, cfg.n_kv_heads, hd)
+                 for w in ("wk", "wv"))
+
+
+def _cross_attend(cfg, p, x, enc_out, kv=None):
+    """Encoder-decoder cross attention (whisper): plain einsum attention
+    with no mask, as the reference's (which never sends it to Pallas).
+    ``kv``: the encoder output's (K, V) when the caller has them (the
+    prefill keeps them as the cache, the decode reads them from it)."""
+    dt = x.dtype
+    B, T, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = (x @ p["wq"].to(dt)).reshape(B, T, cfg.n_heads, hd)
+    k, v = kv if kv is not None else _cross_kv(cfg, p, enc_out)
+    bias = torch.zeros((B, T, k.shape[1]), dtype=torch.float32,
+                       device=x.device)
+    o = attn._attend_full(q, k, v, bias, hd ** -0.5, None)
+    return o.reshape(B, T, -1) @ p["wo"].to(dt)
 
 
 def _mixer_train(cfg, kind, p, x, positions):
     fl = kind[0]
     if fl in ("g", "l"):
+        if cfg.mla is not None:
+            return attn.mla_train(cfg, p, x, positions)
         window = cfg.window if fl == "l" else None
         return attn.attention_train(cfg, p, x, positions, window=window)
     return {"r": rec.rglru_train, "m": rec.mlstm_train,
             "s": rec.slstm_train}[fl](cfg, p, x)
 
 
-def apply_block_train(cfg, kind, p, x, positions):
-    """Block forward over a whole sequence (no cache)."""
+def apply_block_train(cfg, kind, p, x, positions, enc_out=None,
+                      train=False):
+    """Block forward over a whole sequence (no cache) → (x, MoE aux)."""
     h = apply_norm(cfg, p["norm1"], x)
     h = _mixer_train(cfg, kind, p["mixer"], h, positions)
     if cfg.post_norm:
         h = apply_norm(cfg, p["norm1_post"], h)
-    return _ffn_half(cfg, p, x + h)
+    return _ffn_half(cfg, p, _cross_half(cfg, p, x + h, enc_out), train)
 
 
 # --- decode ----------------------------------------------------------------
@@ -184,31 +224,48 @@ _PREFILL = {"r": rec.rglru_prefill, "m": rec.mlstm_prefill,
 
 
 def init_layer_cache(cfg, kind: Kind, batch: int, max_len: int, *,
-                     lead: Tuple[int, ...] = (), device=None):
+                     cross_len: int = 0, lead: Tuple[int, ...] = (),
+                     device=None):
     device = alloc_device(device)
     fl = kind[0]
     if fl in ("g", "l"):
         window = cfg.window if fl == "l" else None
-        return attn.init_cache(cfg, batch, max_len, window=window, lead=lead,
-                               device=device)
-    return _STATE_INIT[fl](cfg, batch, lead=lead, device=device)
+        c = attn.init_cache(cfg, batch, max_len, window=window, lead=lead,
+                            device=device)
+    else:
+        c = _STATE_INIT[fl](cfg, batch, lead=lead, device=device)
+    if cross_len:
+        shape = lead + (batch, cross_len, cfg.n_kv_heads,
+                        cfg.resolved_head_dim)
+        for name in ("xk", "xv"):
+            c[name] = torch.zeros(shape, dtype=dtype_of(cfg.dtype),
+                                  device=device)
+    return c
+
+
+_MIXER_CACHE = ("k", "v", "c_kv", "k_pe")
 
 
 def apply_block_decode(cfg, kind, p, x, cache, pos):
     fl = kind[0]
     h = apply_norm(cfg, p["norm1"], x)
     if fl in ("g", "l"):
-        window = cfg.window if fl == "l" else None
-        h, upd = attn.attention_decode(cfg, p["mixer"], h,
-                                       {k: cache[k] for k in ("k", "v")},
-                                       pos, window=window)
+        mine = {k: v for k, v in cache.items() if k in _MIXER_CACHE}
+        if cfg.mla is not None:
+            h, upd = attn.mla_decode(cfg, p["mixer"], h, mine, pos)
+        else:
+            window = cfg.window if fl == "l" else None
+            h, upd = attn.attention_decode(cfg, p["mixer"], h, mine, pos,
+                                           window=window)
     else:
         h, upd = _DECODE[fl](cfg, p["mixer"], h, cache)
     new_cache = dict(cache)
     new_cache.update(upd)
     if cfg.post_norm:
         h = apply_norm(cfg, p["norm1_post"], h)
-    return _ffn_half(cfg, p, x + h), new_cache
+    kv = (cache["xk"], cache["xv"]) if "cross" in p else None
+    x = _cross_half(cfg, p, x + h, None, kv)
+    return _ffn_half(cfg, p, x)[0], new_cache
 
 
 # --------------------------------------------------------------------------
@@ -218,7 +275,6 @@ def apply_block_decode(cfg, kind, p, x, cache, pos):
 def init_params(cfg, gen, *, device=None) -> Dict[str, Any]:
     """Parameters drawn from ``gen`` on its device (or ``device``); on
     ``device="meta"`` (``gen`` may be None) shapes only."""
-    _check_served(cfg)
     device = torch.device(device) if device is not None else gen.device
     pdt = dtype_of(cfg.param_dtype)
     params: Dict[str, Any] = {
@@ -230,9 +286,15 @@ def init_params(cfg, gen, *, device=None) -> Dict[str, Any]:
                                        device=device).t().contiguous()
     params["segments"] = {
         f"seg{si}": {f"u{ui}": init_block(cfg, kind, gen, lead=(count,),
-                                          device=device)
+                                          device=device, cross=cfg.enc_dec)
                      for ui, kind in enumerate(unit)}
         for si, (unit, count) in enumerate(plan_segments(layer_kinds(cfg)))}
+    if cfg.enc_dec:
+        params["encoder"] = {
+            "blocks": {"u0": init_block(cfg, ("g", "d"), gen,
+                                        lead=(cfg.n_encoder_layers,),
+                                        device=device)},
+            "final_norm": init_norm(cfg, device=device)}
     return params
 
 
@@ -271,13 +333,23 @@ def _embed_tokens(cfg, params, tokens):
 
 
 def _input_sequence(cfg, params, batch):
-    """tokens (text only) → (x, positions (B, T) int32 arange)."""
+    """tokens (+ a VLM's patch embeddings in front) → (x, positions,
+    text offset): ``batch["positions"]`` when given ((B, L, 3) for
+    M-RoPE), else arange (B, L) int32."""
     tokens = batch["tokens"]
     x = _embed_tokens(cfg, params, tokens)
-    B, T = tokens.shape
-    positions = torch.arange(T, dtype=torch.int32,
-                             device=tokens.device).expand(B, T)
-    return x, positions
+    B = tokens.shape[0]
+    offset = 0
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(x.dtype)
+        x = torch.cat([pe, x], dim=1)
+        offset = pe.shape[1]
+    L = x.shape[1]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(L, dtype=torch.int32,
+                                 device=tokens.device).expand(B, L)
+    return x, positions, offset
 
 
 def lm_head_logits(cfg, params, h):
@@ -310,26 +382,66 @@ def _chunked_loss(cfg, params, h, labels, mask):
     return tot / torch.clamp(mask.sum(), min=1.0)
 
 
-def _run_layers(cfg, params, x, positions):
+def _run_encoder(cfg, params, frames):
+    """Whisper's encoder: non-causal self attention (K6 with
+    ``causal=False``) and the FFN in every block, then its final norm."""
+    x = frames.to(dtype_of(cfg.dtype))
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    for p_l in _unstack(params["encoder"]["blocks"]):
+        p = p_l["u0"]
+        h = apply_norm(cfg, p["norm1"], x)
+        x = x + attn.attention_train(cfg, p["mixer"], h, positions,
+                                     causal=False)
+        h = apply_norm(cfg, p["norm2"], x)
+        x = x + apply_ffn(cfg, p["ffn"], h)
+    return apply_norm(cfg, params["encoder"]["final_norm"], x)
+
+
+def _encode(cfg, params, batch):
+    """The encoder output for an encoder-decoder batch, else None."""
+    return _run_encoder(cfg, params, batch["frames"]) if cfg.enc_dec \
+        else None
+
+
+def _run_layers(cfg, params, x, positions, enc_out=None, train=False):
+    """Every decoder block → (x, the MoE aux losses summed in f32)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, (unit, _) in enumerate(plan_segments(layer_kinds(cfg))):
         for p_l in _unstack(params["segments"][f"seg{si}"]):
             for ui, kind in enumerate(unit):
-                x = apply_block_train(cfg, kind, p_l[f"u{ui}"], x, positions)
-    return x
+                x, a = apply_block_train(cfg, kind, p_l[f"u{ui}"], x,
+                                         positions, enc_out, train)
+                aux = aux + a
+    return x, aux
+
+
+def full_logits(cfg, params, batch):
+    """The train path's forward without the loss → logits (B, T, V) at
+    every text position (MoE dropless, as prefill and decode run it)."""
+    x, positions, offset = _input_sequence(cfg, params, batch)
+    x, _ = _run_layers(cfg, params, x, positions,
+                       _encode(cfg, params, batch))
+    x = apply_norm(cfg, params["final_norm"], x)
+    return lm_head_logits(cfg, params, x[:, offset:])
 
 
 def loss_fn(cfg, params, batch):
     """Mean next-token cross-entropy over ``batch["mask"]`` (all ones if
-    absent)."""
-    _check_served(cfg)
-    x, positions = _input_sequence(cfg, params, batch)
-    x = _run_layers(cfg, params, x, positions)
+    absent), plus the MoE aux loss; MoE runs with its training capacity
+    (``train=True``), as the reference's loss does."""
+    x, positions, offset = _input_sequence(cfg, params, batch)
+    x, aux = _run_layers(cfg, params, x, positions,
+                         _encode(cfg, params, batch), train=True)
     x = apply_norm(cfg, params["final_norm"], x)
+    if offset:
+        x = x[:, offset:]
     labels = batch["labels"]
     mask = batch.get("mask")
     mask = (torch.ones(labels.shape, dtype=torch.float32, device=x.device)
             if mask is None else mask.float())
-    return _chunked_loss(cfg, params, x, labels, mask)
+    return _chunked_loss(cfg, params, x, labels, mask) + aux
 
 
 # --------------------------------------------------------------------------
@@ -339,28 +451,53 @@ def loss_fn(cfg, params, batch):
 def init_cache(cfg, batch: int, max_len: int, *, device=None):
     """Zero decode caches on ``device``: the card unless the caller asks
     for the CPU."""
-    _check_served(cfg)
     device = alloc_device(device)
+    cross_len = cfg.encoder_len if cfg.enc_dec else 0
     return {f"seg{si}": {f"u{ui}": init_layer_cache(cfg, kind, batch,
-                                                    max_len, lead=(count,),
+                                                    max_len,
+                                                    cross_len=cross_len,
+                                                    lead=(count,),
                                                     device=device)
                          for ui, kind in enumerate(unit)}
             for si, (unit, count) in enumerate(
                 plan_segments(layer_kinds(cfg)))}
 
 
-def _prefill_block(cfg, kind, p, x, positions, max_len):
+def _prefill_block(cfg, kind, p, x, positions, max_len, enc_out):
     """Block forward that also captures the decode cache."""
     fl = kind[0]
     h = apply_norm(cfg, p["norm1"], x)
-    if fl in ("g", "l"):
+    if fl in ("g", "l") and cfg.mla is not None:
+        h, cache = _mla_prefill(cfg, p["mixer"], h, positions, max_len)
+    elif fl in ("g", "l"):
         h, cache = _attention_prefill(cfg, fl, p["mixer"], h, positions,
                                       max_len)
     else:
         h, cache = _PREFILL[fl](cfg, p["mixer"], h)
     if cfg.post_norm:
         h = apply_norm(cfg, p["norm1_post"], h)
-    return _ffn_half(cfg, p, x + h), cache
+    kv = None
+    if "cross" in p:
+        kv = _cross_kv(cfg, p["cross"], enc_out)
+        cache["xk"], cache["xv"] = (t.to(dtype_of(cfg.dtype)) for t in kv)
+    x = _cross_half(cfg, p, x + h, enc_out, kv)
+    return _ffn_half(cfg, p, x)[0], cache
+
+
+def _into_cache(t, max_len):
+    """(B, T, ...) → zeros (B, max_len, ...) in the cache dtype with t in
+    the first T slots."""
+    c = t.new_zeros((t.shape[0], max_len) + t.shape[2:])
+    c[:, :t.shape[1]] = t
+    return c
+
+
+def _mla_prefill(cfg, p, x, positions, max_len):
+    dt = dtype_of(cfg.dtype)
+    latent = attn.mla_latent(cfg, p, x, positions)
+    out = attn.mla_train(cfg, p, x, positions, latent=latent)
+    return out, {name: _into_cache(t.to(dt), max_len)
+                 for name, t in zip(("c_kv", "k_pe"), latent)}
 
 
 def _attention_prefill(cfg, fl, p, h, positions, max_len):
@@ -378,20 +515,17 @@ def _attention_prefill(cfg, fl, p, h, positions, max_len):
         cache = {"k": torch.roll(k[:, T - S:], shifts=T % S, dims=1),
                  "v": torch.roll(v[:, T - S:], shifts=T % S, dims=1)}
     else:
-        cache = {}
-        for name, t in (("k", k), ("v", v)):
-            c = torch.zeros((B, S) + t.shape[2:], dtype=dt, device=t.device)
-            c[:, :T] = t.to(dt)
-            cache[name] = c
+        cache = {name: _into_cache(t.to(dt), S)
+                 for name, t in (("k", k), ("v", v))}
     return out, cache
 
 
 def prefill(cfg, params, batch, max_len: int):
     """Run the prompt through the model; return (last logits, cache at
-    position T)."""
-    _check_served(cfg)
-    x, positions = _input_sequence(cfg, params, batch)
-    max_len = max(max_len, x.shape[1])
+    position L = P + T, the prefilled sequence's length)."""
+    x, positions, _ = _input_sequence(cfg, params, batch)
+    enc_out = _encode(cfg, params, batch)
+    max_len = max(max_len, x.shape[1])  # modality stubs extend the sequence
     caches = {}
     for si, (unit, _) in enumerate(plan_segments(layer_kinds(cfg))):
         per_layer = []
@@ -399,7 +533,8 @@ def prefill(cfg, params, batch, max_len: int):
             cache_l = {}
             for ui, kind in enumerate(unit):
                 x, cache_l[f"u{ui}"] = _prefill_block(
-                    cfg, kind, p_l[f"u{ui}"], x, positions, max_len)
+                    cfg, kind, p_l[f"u{ui}"], x, positions, max_len,
+                    enc_out)
             per_layer.append(cache_l)
         caches[f"seg{si}"] = _stack(per_layer)
     x = apply_norm(cfg, params["final_norm"], x)

@@ -51,17 +51,26 @@ class Engine:
         self._resume_fns: Dict[int, Any] = {}
 
     def prefill(self, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        """Prefill ``batch["tokens"]`` (B, T) int32 → (last-position logits
-        (B, V), the engine state at position T with the greedy first
-        token)."""
-        tokens = batch["tokens"]
-        check_on(tokens, self.device, "Engine.prefill tokens")
+        """Prefill ``batch`` (``tokens`` (B, T) int32, and ``frames`` for
+        an encoder-decoder, ``patch_embeds`` (B, P, d) and ``positions``
+        for a VLM) → (last-position logits (B, V), the engine state at
+        the prefilled length with the greedy first token).
+
+        ``pos`` is the length of the sequence the cache holds, P + T for a
+        VLM batch, whose patches the prefill puts ahead of the text; the
+        reference's engine sets the text length T (``serve/engine.py:
+        39-41``), so its first decode step overwrites slot T and attends to
+        T + 1 slots (ROADMAP Queue 3)."""
+        for name, t in batch.items():
+            check_on(t, self.device, f"Engine.prefill {name}")
         with torch.no_grad():
             logits, cache = model.prefill(self.cfg, self._compute, batch,
                                           self.max_len)
+        length = batch["tokens"].shape[1]
+        if self.cfg.family == "vlm" and "patch_embeds" in batch:
+            length += batch["patch_embeds"].shape[1]
         return logits, {"cache": cache,
-                        "pos": torch.tensor(tokens.shape[1],
-                                            dtype=torch.int32,
+                        "pos": torch.tensor(length, dtype=torch.int32,
                                             device=self.device),
                         "tokens": _next_tokens(logits)}
 

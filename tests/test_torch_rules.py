@@ -470,6 +470,32 @@ def test_flash_attention_matches_plain_version_on_the_card(card, dtype, case):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+# K6 at the shapes of the model families chip_smoke.py's phase 9 serves:
+# (B, Tq, H, K, D, Dv, causal) of olmoe-1b-7b, deepseek-v3-671b's MLA (D =
+# 192 takes the 256 bucket), whisper-tiny's encoder (non-causal, T = 1500)
+# and qwen2-vl-7b (256 patches + 1024 tokens)
+FA_FAMILY_CASES = {
+    "olmoe": (4, 1024, 16, 16, 128, 128, True),
+    "deepseek-mla": (4, 1024, 128, 128, 192, 128, True),
+    "whisper-encoder": (4, 1500, 6, 6, 64, 64, False),
+    "qwen2-vl": (4, 1280, 28, 4, 128, 128, True),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(FA_FAMILY_CASES))
+def test_flash_attention_at_the_families_shapes_on_the_card(card, name):
+    B, T, H, Kh, D, Dv, causal = FA_FAMILY_CASES[name]
+    g = torch.Generator(device=card).manual_seed(2)
+    q, k, v = (torch.randn(s, generator=g, device=card).to(torch.bfloat16)
+               for s in ((B, T, H, D), (B, T, Kh, D), (B, T, Kh, Dv)))
+    kw = dict(window=None, causal=causal, scale=D ** -0.5, attn_cap=None)
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
 # K1's edges: n one short of and one past 4, 32 and 1024 elements
 K1_CARD_N = [1, 3, 31, 33, 1023, 1025, 4097, (1 << 20) + 5]
 

@@ -50,12 +50,8 @@ from repro_torch._tensors import to_host
 from repro_torch.convert import (params_from_numpy, report_from_masks,
                                  state_from_numpy)
 from repro_torch.configs import all_arch_names
-from repro_torch.models import (count_params, decode_step, init_cache,
-                                init_params, prefill)
-from repro_torch.models.model import (_input_sequence, _unstack,
-                                      apply_block_train, apply_norm,
-                                      layer_kinds, lm_head_logits,
-                                      plan_segments)
+from repro_torch.models import (count_params, decode_step, full_logits,
+                                init_cache, init_params, prefill)
 
 # Small shapes: one intra-op thread each leaves the cores to the other
 # test workers.
@@ -74,7 +70,8 @@ def models():
     def get(name):
         if name not in made:
             rcfg = r_get_config(name).reduced()
-            rparams = r_init_params(rcfg, jax.random.PRNGKey(0))
+            rparams = jax.jit(lambda k: r_init_params(rcfg, k))(
+                jax.random.PRNGKey(0))
             np_params = _map(np.asarray, rparams)
             cfg = get_config(name).reduced()
             made[name] = (rcfg, rparams, cfg,
@@ -122,11 +119,15 @@ def test_config_registry_is_the_references():
 @pytest.mark.parametrize("name", ["deepseek-v3-671b", "olmoe-1b-7b",
                                   "whisper-tiny", "qwen2-vl-7b"])
 def test_unported_families_raise(name):
+    """The families the port once refused (MoE, MLA, encoder-decoder,
+    M-RoPE) are served now: nothing raises, and an engine takes them
+    (their parity with the reference: ``tests/test_torch_models_rest.py``
+    and ``tests/test_torch_moe.py``)."""
     cfg = get_config(name).reduced()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        init_params(cfg, torch.Generator())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        init_cache(cfg, 2, 16)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    cache = init_cache(cfg, 2, 16, device="cpu")
+    assert all(t.device.type == "cpu" for t in _named(cache).values())
+    Engine(cfg, params, 16, device="cpu")
 
 
 def test_foreign_parameter_trees_are_refused(models):
@@ -146,7 +147,9 @@ def _shapes(tree):
 
 
 @pytest.mark.parametrize("name", ARCHS + ["gemma-7b", "xlstm-125m",
-                                          "recurrentgemma-2b"])
+                                          "recurrentgemma-2b", "olmoe-1b-7b",
+                                          "deepseek-v3-671b", "whisper-tiny",
+                                          "qwen2-vl-7b"])
 @pytest.mark.parametrize("reduced", [True, False], ids=["reduced", "full"])
 def test_param_and_cache_trees_match_reference(name, reduced):
     """Leaf names, shapes and dtypes of the parameters and the decode
@@ -207,13 +210,7 @@ def test_prefill_and_decode_match_reference(models, name, T, impl):
 
 def _full_forward_logits(cfg, params, tokens):
     """The port's train-path forward → logits at every position."""
-    x, positions = _input_sequence(cfg, params, {"tokens": tokens})
-    for si, (unit, _) in enumerate(plan_segments(layer_kinds(cfg))):
-        for p_l in _unstack(params["segments"][f"seg{si}"]):
-            for ui, kind in enumerate(unit):
-                x = apply_block_train(cfg, kind, p_l[f"u{ui}"], x, positions)
-    return lm_head_logits(cfg, params,
-                          apply_norm(cfg, params["final_norm"], x))
+    return full_logits(cfg, params, {"tokens": tokens})
 
 
 @pytest.mark.parametrize("name", ARCHS)

@@ -351,10 +351,7 @@ def test_decode_matches_full_forward(name):
     params = init_params(cfg, torch.Generator().manual_seed(0))
     T = 40                                 # past recurrentgemma's window 32
     toks = torch.from_numpy(_tokens((2, T + 1), cfg.vocab, seed=5))
-    x, positions = model_mod._input_sequence(cfg, params, {"tokens": toks})
-    x = model_mod._run_layers(cfg, params, x, positions)
-    want = model_mod.lm_head_logits(
-        cfg, params, model_mod.apply_norm(cfg, params["final_norm"], x))[:, T]
+    want = model_mod.full_logits(cfg, params, {"tokens": toks})[:, T]
     _, cache = prefill(cfg, params, {"tokens": toks[:, :T]}, T + 8)
     got, _ = decode_step(cfg, params, cache, toks[:, T:],
                          torch.tensor(T, dtype=torch.int32))
@@ -371,11 +368,8 @@ def test_short_recurrent_prefill_decodes(models, T):
     decode step fails on the same prompt (ROADMAP Queue 3)."""
     rcfg, rparams, cfg, params = models("recurrentgemma-2b")
     toks = _tokens((2, T + 1), cfg.vocab, seed=7 + T)
-    x, positions = model_mod._input_sequence(
-        cfg, params, {"tokens": torch.from_numpy(toks)})
-    x = model_mod._run_layers(cfg, params, x, positions)
-    want = model_mod.lm_head_logits(
-        cfg, params, model_mod.apply_norm(cfg, params["final_norm"], x))[:, T]
+    want = model_mod.full_logits(
+        cfg, params, {"tokens": torch.from_numpy(toks)})[:, T]
     logits, cache = prefill(cfg, params,
                             {"tokens": torch.from_numpy(toks[:, :T])}, 16)
     r_logits, _ = jax.jit(lambda p, t: r_model.prefill(
