@@ -4,11 +4,17 @@
 
 Builds the CUDA kernels of ``src/repro_torch/csrc`` (one nvcc per source,
 all started together) and checks each against its plain PyTorch version on
-the card, then drives the port's four paths: the paper's pipeline
+the card, then drives the port's paths: the paper's pipeline
 (scrutinize → device-packed save → delta chain → device restore) at a
 ≈2.5 GiB state, with a manager that re-scrutinizes at every save (the
 unchanged report keeps the chain) and a precision-tiered round trip; the
-serving path (phi4-mini-3.8b at full width and depth: prefill through
+coordinated save of that state by four host threads (base, delta,
+unchanged delta restored 4 → 1 through its chain, a degraded commit with one host killed after its partner
+replica landed, restores from the partner with no store read, 4 → 1
+through the scatter kernel and a single-process checkpoint 1 → 4, the
+fused telemetry rendered by the report CLI), the launcher as a
+coordinated job of two processes resumed by one, and a gloo group's
+``TorchCollective``; the serving path (phi4-mini-3.8b at full width and depth: prefill through
 flash attention, decode, KV scrutiny, base + delta snapshots, restore,
 exact continuation); the rest of the model families served the same way
 (olmoe-1b-7b at full width and depth, deepseek-v3-671b's MLA and MoE,
@@ -23,9 +29,10 @@ pack and one unpack launch a restart, scrutinized saves and restores that
 verify, Table III); and the training path (recurrentgemma-2b at full
 width, depth cut to fit: train steps through the RG-LRU scan and flash
 attention forward and backward, AD scrutiny of the training state, the
-scrutinized save and the save with no report (device clones), restores
-and continuations, the launcher's own smoke run, and its resume traced
-with K6 and K7 as custom-op nodes).  It checks the
+scrutinized save and the save with no report (device clones), a
+coordinated save by four host threads restored onto one, restores and
+continuations, the launcher's own smoke run, and its resume traced with
+K6 and K7 as custom-op nodes).  It checks the
 hardware-independent byte counts of the reference bench state and times
 every kernel.  Any failed check raises and ends the run with a non-zero
 exit; the second-to-last line is the kernels JSON, the last the device
@@ -42,6 +49,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -748,7 +756,8 @@ def phase_main_path(root: str):
     print(f"main path: tiered round trip (TIERED_BF16, {N_TIERED} elements "
           f"of w and h): {json.dumps(tiers)}")
     print(f"main path: launches {json.dumps(launches)}")
-    return launches, {"state": state, "sel_w": sel_w, "rep": rep}
+    return launches, {"state": state, "sel_w": sel_w, "sel_h": sel_h,
+                      "rep": rep}
 
 
 def rescrutiny_chain(root: str, state, resume) -> dict:
@@ -868,6 +877,529 @@ def phase_bench_bytes(root: str) -> None:
           f"(reference {BENCH_DISK} / {BENCH_D2H} / {BENCH_H2D})")
     check((disk, d2h, h2d) == (BENCH_DISK, BENCH_D2H, BENCH_H2D),
           "bench-state byte counts differ from the reference's")
+
+
+# ----------------------------------------------------------------------------
+# phase 10: coordinated checkpointing by four host threads at the main
+# path's size
+# ----------------------------------------------------------------------------
+
+HOSTS = 4
+# a leaf whose host segments start off a byte (rows 251/250/250/250 of 3:
+# flat starts 753, 1503, 2253), so the report's words are shifted per host
+ODD_SHAPE = (1001, 3)
+COORD_TIMEOUT_S = 120.0
+DEGRADED_TIMEOUT_S = 3.0     # the land barrier's wait for the dead host
+VICTIM = 2
+
+
+def host_threads(n, coord, fn, timeout=COORD_TIMEOUT_S):
+    """``fn(index, collective)`` on ``n`` threads, one simulated host each,
+    over one ``FileCollective`` dir → (results, errors)."""
+    from repro_torch.distributed.collective import (FileCollective,
+                                                    ProcessContext)
+    results, errors = [None] * n, [None] * n
+
+    def run(p):
+        try:
+            coll = FileCollective(coord, ctx=ProcessContext(p, n),
+                                  timeout_s=timeout)
+            results[p] = fn(p, coll)
+        except BaseException as e:      # noqa: BLE001 - reported below
+            errors[p] = e
+
+    threads = [threading.Thread(target=run, args=(p,)) for p in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return results, errors
+
+
+def hosts_ok(results, errors, what):
+    bad = [(p, repr(e)) for p, e in enumerate(errors) if e is not None]
+    check(not bad, f"{what}: hosts failed {bad}")
+    return results
+
+
+def uncounted(fn):
+    """Run an oracle (a single-process save or restore the path is held
+    against) without adding its launches to the path's counts."""
+    saved = dict(K.LAUNCHES)
+    try:
+        return fn()
+    finally:
+        K.LAUNCHES.update(saved)
+
+
+def owned_rows_equal(got, want, count, index, what):
+    from repro_torch.distributed.collective import process_segments
+    for name, w in want.items():
+        shape = tuple(w.shape)
+        row = int(np.prod(shape[1:])) if len(shape) > 1 else 1
+        g, w = got[name].reshape(-1), w.reshape(-1)
+        for lo, hi, owner in process_segments(shape or (1,), count):
+            if owner == index:
+                check(same_bytes(g[lo * row:hi * row], w[lo * row:hi * row]),
+                      f"{what}: host {index} rows [{lo}, {hi}) of {name}")
+
+
+def phase_coordinated(root: str, main: dict, main_root: str):
+    """Phase 10 → the path's mask-kernel launches.  Four host threads, each
+    a ``CoordinatedCheckpointManager`` on the card over one
+    ``FileCollective``, save phase 3's state (plus a leaf whose segments
+    start off a byte) with one scrutiny report: a base, a delta after a
+    1 MiB change, an unchanged delta; the unchanged delta restored 4 → 1
+    through its chain and K4; a degraded save with host 2 killed after its
+    L2 replica landed; restores from the partner (0 store bytes), 4 → 1
+    through K4, and phase 3's single-process step 1 → 4."""
+    import contextlib
+    import io
+    from repro_torch import ScrutinyConfig, obs, scrutinize
+    from repro_torch.checkpoint import (CheckpointManager,
+                                        CoordinatedCheckpointManager,
+                                        GlobalManifest, Level,
+                                        load_checkpoint_raw, read_manifest)
+    from repro_torch.checkpoint.levels import L2_PARTNER, default_l2_root
+    from repro_torch.obs import report as obs_report
+    from repro_torch.testing.faults import FaultInjector, HostKilled
+
+    t_phase = time.perf_counter()
+    sel_w, sel_h = main["sel_w"], main["sel_h"]
+    state = dict(main["state"])             # phase 3's tensors, shared
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(2031)
+    state["odd"] = torch.randn(ODD_SHAPE, generator=gen, device=DEV)
+    sel_odd = torch.rand(ODD_SHAPE[0] * ODD_SHAPE[1], generator=gen,
+                         device=DEV) < 0.5
+    base_resume = make_resume(sel_w, sel_h)
+    f_odd = sel_odd.float()
+
+    def resume(s):
+        return base_resume(s) + (s["odd"].reshape(-1) * f_odd).sum()
+
+    want = {"w": sel_w, "b": torch.arange(N_B, device=DEV) < N_B * 7 // 8,
+            "h": sel_h, "odd": sel_odd}
+    lv_root = os.path.join(root, "coord")
+    single_root = os.path.join(root, "single")
+    full = sum(v.nbytes for v in state.values())
+    print(f"coordinated: {HOSTS} host threads, state {full} B "
+          f"({full / 2 ** 30:.3f} GiB), leaf odd {ODD_SHAPE}")
+
+    K.reset_launches()
+    # ---- the coordinated path: counts from 0 here, read at the end -------
+    obs.reset()
+    obs.enable()
+    try:
+        rep, scrutiny_s = synced(lambda: scrutinize(
+            resume, state, config=ScrutinyConfig(probes=4), device=DEV))
+        for name, sel in want.items():
+            check(torch.equal(rep[name].device_words(),
+                              ops.mask_to_words(sel.reshape(-1))),
+                  f"coordinated: scrutiny mask of {name} differs from its "
+                  f"selector")
+        for leaf in rep.leaves.values():    # the host mask and runs, once,
+            leaf.mask, leaf.table           # before four hosts read them
+
+        single = CheckpointManager([Level(single_root, keep_n=2)],
+                                   scrutiny_fn=lambda s: rep, device=DEV)
+        uncounted(lambda: single.save(1, state, block=True))
+        sync_saves = threading.Barrier(HOSTS)
+        injector = FaultInjector().kill_at("after_replicate", match="q4.")
+        mgrs = [None] * HOSTS
+
+        def host(p, coll):
+            mgr = CoordinatedCheckpointManager(
+                [Level(lv_root, keep_n=4, max_chain=2)], collective=coll,
+                scrutiny_fn=lambda s: rep, device=DEV,
+                fault_injector=injector if p == VICTIM else None)
+            mgrs[p] = mgr
+            out = {}
+            t0 = time.perf_counter()
+            mgr.save(1, state, block=False)
+            out["blocked_s"] = mgr.last_save_stats["blocked_s"]
+            sync_saves.wait()
+            if p == 0:      # in place, after every host's save() returned
+                state["w"][:MUTATED] += 1.0
+            sync_saves.wait()
+            out["s1"] = dict(mgr.wait())
+            torch.cuda.synchronize()
+            out["save_s"] = time.perf_counter() - t0
+            for step in (2, 3):
+                mgr.save(step, state, block=True)
+                out[f"s{step}"] = dict(mgr.wait())
+            return out
+
+        res = hosts_ok(*host_threads(HOSTS, os.path.join(root, "rdv1"),
+                                     host), "coordinated: steps 1-3")
+        uncounted(lambda: single.save(2, state, block=True))
+        single.close()
+        lv = [[r[f"s{t}"]["levels"][lv_root] for t in (1, 2, 3)]
+              for r in res]
+        check([x["kind"] for x in lv[0]] == ["base", "delta", "delta"],
+              f"coordinated: step kinds {[x['kind'] for x in lv[0]]}")
+        m2, m3 = read_manifest(lv_root, 2), read_manifest(lv_root, 3)
+        changed = [sum(s.get("num_chunks", 0) for e in m["leaves"]
+                       for s in e["segments"]) for m in (m2, m3)]
+        check(changed[0] > 0 and changed[1] == 0,
+              f"coordinated: changed delta chunks at steps 2, 3: {changed}")
+        # the fused manifest covers each leaf exactly once
+        for step in (1, 2, 3):
+            gm = GlobalManifest.load(lv_root, step)
+            check(gm.process_count == HOSTS, f"step {step}: process count")
+            for name, leaf in state.items():
+                segs = GlobalManifest.segments_of(gm.leaves()[name])
+                n = leaf.numel()
+                check(segs[0]["start"] == 0 and segs[-1]["stop"] == n
+                      and all(a["stop"] == b["start"]
+                              for a, b in zip(segs, segs[1:])),
+                      f"coordinated: step {step} segments of {name} do not "
+                      f"tile [0, {n})")
+        # each step's payload bytes are the single-process manager's for
+        # the same mask (delta steps through their chain)
+        for step, ref_step in ((1, 1), (2, 2), (3, 2)):
+            _, got_p, _ = load_checkpoint_raw(lv_root, step)
+            _, ref_p, _ = load_checkpoint_raw(single_root, ref_step)
+            for name in state:
+                check(got_p[name].payload == ref_p[name].payload,
+                      f"coordinated: step {step} payload of {name} differs "
+                      f"from the single-process manager's")
+            del got_p, ref_p
+        odd_starts = [s["start"] for s in GlobalManifest.segments_of(
+            GlobalManifest.load(lv_root, 1).leaves()["odd"])]
+        check([s % 8 for s in odd_starts[1:]] != [0, 0, 0],
+              f"coordinated: odd's segments start on bytes {odd_starts}")
+
+        exp = {n: (torch.where(want[n].view(t.shape), t, torch.zeros_like(t))
+                   if n in want else t) for n, t in state.items()}
+        like = {k: torch.empty_like(v) for k, v in state.items()}
+        # step 3, the unchanged delta, restored 4 → 1: the chain is rebuilt
+        # on the host, and each masked leaf is expanded on the card by K4
+        k4_chain = K.LAUNCHES["mask_scatter"]
+        with CoordinatedCheckpointManager([Level(lv_root)],
+                                          device=DEV) as mgr:
+            (st, got), chain_s = synced(lambda: mgr.restore(like))
+            chain_stats = dict(mgr.last_restore_stats)
+        k4_chain = K.LAUNCHES["mask_scatter"] - k4_chain
+        check(st == 3 and chain_stats["chain"] and k4_chain == len(want),
+              f"coordinated: 4 → 1 restore of the chain gave step {st} "
+              f"(chain {chain_stats['chain']}) with {k4_chain} K4")
+        for name, t in exp.items():
+            check(same_bytes(got[name], t), f"coordinated: 4 → 1 restore of "
+                  f"step 3's {name} is not the state under its mask")
+        del got
+
+        # step 4: host 2 dies after its replicate; the survivors commit
+        # degraded from its partner's replica
+        def degraded(p, coll):
+            mgr = mgrs[p]
+            mgr.barrier_timeout_s = DEGRADED_TIMEOUT_S
+            t0 = time.perf_counter()
+            try:
+                mgr.save(4, state, block=True)
+                return dict(mgr.last_save_stats), time.perf_counter() - t0
+            finally:
+                try:
+                    mgr.close()
+                except HostKilled:
+                    pass
+
+        # (each manager keeps its collective; these are not used)
+        deg, deg_err = host_threads(HOSTS, os.path.join(root, "rdv_unused"),
+                                    degraded)
+    finally:
+        obs.disable()
+    check(isinstance(deg_err[VICTIM], HostKilled)
+          and all(deg_err[p] is None for p in range(HOSTS) if p != VICTIM),
+          f"coordinated: degraded save errors {deg_err}")
+    m4 = read_manifest(lv_root, 4)
+    survivors = [p for p in range(HOSTS) if p != VICTIM]
+    check(m4.get("degraded", {}).get("missing") == [VICTIM],
+          f"coordinated: step 4 degraded section {m4.get('degraded')}")
+    deg_lv = deg[survivors[0]][0]["levels"][lv_root]
+
+    # the fused telemetry of step 1, rendered by the report CLI
+    tel = os.path.join(lv_root, "step_1")
+    trace_path = os.path.join(root, "trace.json")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = obs_report.main([tel, "--trace-out", trace_path])
+    rendered = buf.getvalue()
+    with open(os.path.join(tel, "telemetry.json")) as f:
+        doc = json.load(f)
+    with open(trace_path) as f:
+        pids = {e["pid"] for e in json.load(f)["traceEvents"]
+                if e["ph"] != "M"}
+    check(rc == 0 and sorted(doc["hosts"]) == [str(p) for p in range(HOSTS)]
+          and pids == set(range(HOSTS))
+          and all(frag.get("drift") for frag in doc["hosts"].values())
+          and "criticality drift" in rendered,
+          f"coordinated: telemetry of step 1: hosts {sorted(doc['hosts'])},"
+          f" trace processes {sorted(pids)}")
+
+    # step 5: fresh managers, host 2 replaced (its node-local replica
+    # store is gone): the partner serves, no byte comes from the store
+    shutil.rmtree(os.path.join(default_l2_root(lv_root), f"h{VICTIM}"))
+
+    def partner_restore(p, coll):
+        with CoordinatedCheckpointManager([Level(lv_root)], collective=coll,
+                                          device=DEV) as mgr:
+            (st, got), dt = synced(lambda: mgr.restore(like,
+                                                       local_only=True))
+            owned_rows_equal(got, exp, HOSTS, p, "partner restore")
+            return st, dict(mgr.last_restore_stats), dt
+
+    rest = hosts_ok(*host_threads(HOSTS, os.path.join(root, "rdv2"),
+                                  partner_restore), "coordinated: step 5")
+    check(all(st == 4 and s["bytes_read_store"] == 0
+              and s["level_served"][L2_PARTNER] > 0 for st, s, _ in rest),
+          f"coordinated: partner restore read the store: "
+          f"{[(st, s['bytes_read_store']) for st, s, _ in rest]}")
+    torch.cuda.empty_cache()
+    # step 6: 4 → 1, every leaf whole, range reads expanded by K4
+    k4 = K.LAUNCHES["mask_scatter"]
+    with CoordinatedCheckpointManager([Level(lv_root)], device=DEV) as mgr:
+        (st, got), one_s = synced(lambda: mgr.restore(like))
+        one_stats = dict(mgr.last_restore_stats)
+    k4 = K.LAUNCHES["mask_scatter"] - k4
+    check(st == 4 and k4 >= len(want),
+          f"coordinated: 4 → 1 restore gave step {st} with {k4} K4")
+    for name, t in exp.items():
+        check(same_bytes(got[name], t), f"coordinated: 4 → 1 restore of "
+              f"{name} is not the state under its mask")
+    del got
+    # step 7: phase 3's single-process step 1 restored onto 4 hosts
+    p3_root = os.path.join(root, "from_phase3")
+    os.makedirs(os.path.join(p3_root, "step_1"))
+    for f in os.listdir(os.path.join(main_root, "step_1")):
+        os.link(os.path.join(main_root, "step_1", f),
+                os.path.join(p3_root, "step_1", f))
+    p3_like = {k: v for k, v in like.items() if k != "odd"}
+    with CheckpointManager([Level(p3_root)], device=DEV) as mgr:
+        _, p3_want = uncounted(lambda: mgr.restore(p3_like))
+    p3_total = read_manifest(p3_root, 1)["payload_bytes"]
+
+    def reshard(p, coll):
+        with CoordinatedCheckpointManager([Level(p3_root)], collective=coll,
+                                          device=DEV) as mgr:
+            (st, got), dt = synced(lambda: mgr.restore(p3_like,
+                                                       local_only=True))
+            owned_rows_equal(got, p3_want, HOSTS, p, "1 → 4 restore")
+            return st, dict(mgr.last_restore_stats), dt
+
+    rs = hosts_ok(*host_threads(HOSTS, os.path.join(root, "rdv3"), reshard),
+                  "coordinated: 1 → 4 restore")
+    reads = [s["bytes_read"] for _, s, _ in rs]
+    check(all(st == 1 for st, _, _ in rs)
+          and all(0 < r < p3_total for r in reads),
+          f"coordinated: 1 → 4 range reads {reads} of {p3_total}")
+    launches = {k: K.LAUNCHES[k] for k in CKPT_KERNELS}
+    # ---- end of the coordinated path --------------------------------------
+    # K2 once a host a masked leaf a step (steps 1-4; host 2 packs step 4
+    # before it dies)
+    check(launches["threshold_bitpack"] > 0
+          and launches["pack"] == HOSTS * len(want) * 4
+          and launches["mask_scatter"] > 0 and launches["delta_flags"] == 0,
+          f"coordinated: launches {launches} (K1; K2 {HOSTS * len(want) * 4}"
+          f" times; K4; the delta is the host's)")
+    del p3_want, exp, like
+    torch.cuda.empty_cache()
+
+    disk = [_dir_bytes(os.path.join(lv_root, f"step_{t}"))
+            for t in (1, 2, 3, 4)]
+    hosts = {p: {"blocked_s": round(r["blocked_s"], 4),
+                 "save_s": round(r["save_s"], 4),
+                 "land_barrier_s": [round(x["land_barrier_s"], 4)
+                                    for x in lv[p]],
+                 "commit_barrier_s": [round(x["commit_barrier_s"], 4)
+                                      for x in lv[p]],
+                 "d2h_bytes": r["s1"]["d2h_bytes"],
+                 "written": [x["host_bytes_written"] for x in lv[p]]}
+             for p, r in enumerate(res)}
+    print(f"coordinated: scrutiny_s={scrutiny_s:.4f}; steps 1-3 per host "
+          f"{json.dumps(hosts)}")
+    print(f"coordinated: disk bytes of steps 1-4 {disk}; delta chunks "
+          f"steps 2, 3 {changed}; payloads equal the single-process "
+          f"manager's; odd's segments start at {odd_starts}")
+    print(f"coordinated: step 4 with host {VICTIM} killed after its "
+          f"replicate: degraded {json.dumps(m4['degraded'])}, survivors' "
+          f"save_s {[round(d[1], 4) for d in deg if d]}, recovered "
+          f"{deg_lv.get('l2_recovered_bytes')} B from the partner, land "
+          f"barrier {deg_lv['land_barrier_s']:.4f} s (timeout "
+          f"{DEGRADED_TIMEOUT_S} s)")
+    print(f"coordinated: partner restore (host {VICTIM} replaced) restore_s "
+          f"{[round(d, 4) for _, _, d in rest]}, store bytes "
+          f"{[s['bytes_read_store'] for _, s, _ in rest]}, L2 bytes "
+          f"{[s['bytes_read_l2'] for _, s, _ in rest]}, h2d "
+          f"{[s['h2d_bytes'] for _, s, _ in rest]}")
+    print(f"coordinated: step 3 (delta chain) 4 → 1 through K4 "
+          f"({k4_chain} launches) restore_s={chain_s:.4f} "
+          f"bytes_read={chain_stats['bytes_read']} "
+          f"h2d={chain_stats['h2d_bytes']}; bit-identical to the state "
+          f"under its masks")
+    print(f"coordinated: 4 → 1 restore through K4 ({k4} launches) "
+          f"restore_s={one_s:.4f} bytes_read={one_stats['bytes_read']} "
+          f"h2d={one_stats['h2d_bytes']}; bit-identical to the state under "
+          f"its masks")
+    print(f"coordinated: phase 3's step 1 onto {HOSTS} hosts: restore_s "
+          f"{[round(d, 4) for _, _, d in rs]}, range reads {reads} of "
+          f"{p3_total} B")
+    print("coordinated: telemetry of step 1 (python -m "
+          "repro_torch.obs.report), its save timeline:")
+    for line in rendered.split("== criticality drift")[0].splitlines()[1:]:
+        if line.strip():
+            print(f"coordinated:   {line}")
+    print(f"coordinated: launches {json.dumps(launches)}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    shutil.rmtree(root)        # the later phases' disk and page cache
+    return launches
+
+
+# the launcher as a coordinated job of two processes, resumed by one; and a
+# two-process gloo group saving through TorchCollective
+PROC_ARGS = ["--arch", "xlstm-125m", "--preset", "smoke", "--batch", "2",
+             "--seq", "64", "--ckpt-every", "4", "--log-every", "1000"]
+
+_LAUNCH_PROG = r"""
+import json, sys
+from repro_torch.launch import train
+print("LOSSES", json.dumps(train.main(sys.argv[1:])))
+"""
+
+_GLOO_PROG = r"""
+import os, sys
+import numpy as np, torch
+import torch.distributed as dist
+rank = int(os.environ["RANK"])
+dist.init_process_group("gloo", init_method=os.environ["INIT"], rank=rank,
+                        world_size=2)
+from repro_torch.checkpoint import CoordinatedCheckpointManager, Level
+from repro_torch.convert import report_from_masks
+from repro_torch.distributed.collective import (TorchCollective,
+                                                get_collective,
+                                                process_segments)
+from repro_torch.kernels.mask_pack import kernel as K
+coll = get_collective()
+assert isinstance(coll, TorchCollective) and coll.ctx.count == 2
+dev = os.environ["DEVICE"]
+gen = torch.Generator(device=dev).manual_seed(7)
+state = {"w": torch.randn(1 << 20, generator=gen, device=dev),
+         "odd": torch.randn(1001, 3, generator=gen, device=dev),
+         "step": torch.tensor(3, dtype=torch.int32, device=dev)}
+rng = np.random.RandomState(1)
+masks = {"w": rng.rand(1 << 20) < 0.3, "odd": rng.rand(3003) < 0.5}
+rep = report_from_masks(masks, state)
+with CoordinatedCheckpointManager([Level(os.environ["ROOT"])],
+                                  collective=coll, scrutiny_fn=lambda s: rep,
+                                  barrier_timeout_s=120, device=dev) as mgr:
+    mgr.save(1, state, block=True)
+    st, got = mgr.restore({k: torch.empty_like(v) for k, v in state.items()},
+                          local_only=True)
+    assert st == 1
+    for name, m in masks.items():
+        t = state[name]
+        want = torch.where(torch.from_numpy(m).to(dev).view(t.shape), t, 0)
+        for lo, hi, owner in process_segments(tuple(t.shape), 2):
+            if owner == rank:
+                assert torch.equal(got[name][lo:hi], want[lo:hi]), name
+print("GLOO_OK", rank, K.LAUNCHES["pack"], K.LAUNCHES["mask_scatter"],
+      flush=True)
+dist.destroy_process_group()
+"""
+
+
+def _spawn(prog, args, env_extra):
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]), **env_extra)
+    for k in ("REPRO_PROCESS_INDEX", "REPRO_PROCESS_COUNT"):
+        if k not in env_extra:
+            env.pop(k, None)
+    return subprocess.Popen([sys.executable, "-c", prog] + list(args),
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _finish(procs, what, timeout=300):
+    outs = []
+    for pr in procs:
+        try:
+            out, err = pr.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise
+        check(pr.returncode == 0, f"{what}: exit {pr.returncode}: "
+              f"{err[-2000:]}")
+        outs.append(out)
+    return outs
+
+
+def _losses(out):
+    line = next(x for x in out.splitlines() if x.startswith("LOSSES "))
+    return json.loads(line[len("LOSSES "):])
+
+
+def phase_coordinated_processes(root: str) -> None:
+    """Two real processes of the launcher with ``--coordinated`` (the
+    ``REPRO_PROCESS_*`` simulation) train 12 steps and save at 4, 8 and
+    12; the job is cut after step 8 (step 12 removed) and one process
+    resumes it.  Meanwhile two processes in a gloo group save and restore
+    through ``TorchCollective``."""
+    import socket
+    from repro_torch.checkpoint import is_step_committed
+    t0 = time.perf_counter()
+    ckpt = os.path.join(root, "launcher")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    gloo_root = os.path.join(root, "gloo")
+    args = PROC_ARGS + ["--device", DEV]
+    launchers = [_spawn(_LAUNCH_PROG, args + [
+        "--steps", "12", "--ckpt-dir", ckpt, "--coordinated",
+        "--coord-dir", os.path.join(root, "rdv")],
+        {"REPRO_PROCESS_INDEX": str(p), "REPRO_PROCESS_COUNT": "2"})
+        for p in range(2)]
+    gloo = [_spawn(_GLOO_PROG, [], {"RANK": str(r), "ROOT": gloo_root,
+                                    "INIT": f"tcp://localhost:{port}",
+                                    "DEVICE": DEV})
+            for r in range(2)]
+    first = [_losses(o) for o in _finish(launchers, "coordinated launcher")]
+    gloo_out = _finish(gloo, "gloo TorchCollective")
+    check(first[0] == first[1], f"coordinated launcher: the processes' "
+          f"losses differ: {first}")
+    step = os.path.join(ckpt, "ram", "step_8")
+    files = set(os.listdir(step))
+    with open(os.path.join(step, "manifest.json")) as f:
+        man = json.load(f)
+    split = [e for e in man["leaves"] if len(e["segments"]) == 2]
+    check({"commit.json", "manifest.host0.json", "manifest.host1.json"}
+          <= files and man["coordinated"]["process_count"] == 2
+          and all(e["encoding"] == "segmented" for e in man["leaves"])
+          and split, f"coordinated launcher: step 8 holds {sorted(files)}")
+    shutil.rmtree(os.path.join(ckpt, "ram", "step_12"))
+    (out,) = _finish([_spawn(_LAUNCH_PROG, args + [
+        "--steps", "12", "--ckpt-dir", ckpt, "--resume"], {})],
+        "launcher resume")
+    resumed = _losses(out)
+    check("resumed from step 8" in out and len(resumed) == 4
+          and np.allclose(resumed, first[0][8:], rtol=1e-5, atol=0),
+          f"launcher resume: losses {resumed} vs the uninterrupted run's "
+          f"{first[0][8:]}")
+    gl = [o.split("GLOO_OK", 1)[1].split() for o in gloo_out]
+    check(is_step_committed(gloo_root, 1), "gloo: step 1 not committed")
+    print(f"coordinated: launcher as 2 processes (--coordinated) then 1 "
+          f"(--resume from step 8): losses 9-12 {json.dumps(resumed)} "
+          f"(bitwise equal to the uninterrupted run's: "
+          f"{resumed == first[0][8:]}); {len(split)} of "
+          f"{len(man['leaves'])} leaves split over both processes")
+    print(f"coordinated: gloo group of 2 processes, TorchCollective: "
+          f"saved and restored on the card (rank, K2, K4 launches) {gl}; "
+          f"processes {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(root)
+
+
 
 
 # ----------------------------------------------------------------------------
@@ -1200,6 +1732,51 @@ class RoutingPin:
         self.moe.top_k = self.real
 
 
+class LayerTap:
+    """While active, keeps each decoder layer's residual stream around its
+    FFN half (``models.model._ffn_half``: the input is the stream after the
+    attention half, the output the layer's output) under the current
+    ``mode``, so that the full forward, the prefill and the decode can be
+    compared layer by layer."""
+
+    def __init__(self):
+        from repro_torch.models import model as model_mod
+        self.model, self.real = model_mod, model_mod._ffn_half
+        self.mode, self.kept = None, {}
+
+    def __enter__(self):
+        def ffn_half(cfg, p, x, train=False):
+            out = self.real(cfg, p, x, train)
+            if self.mode is not None:
+                self.kept.setdefault(self.mode, []).append(
+                    (x.detach().clone(), out[0].detach().clone()))
+            return out
+
+        self.model._ffn_half = ffn_half
+        return self
+
+    def __exit__(self, *exc):
+        self.model._ffn_half = self.real
+
+    def gaps(self, T):
+        """Per layer, max |Δ| / max |x| of the pinned path against the full
+        forward: the decode position T after the attention half and after
+        the layer, and the prefill's positions < T after the layer."""
+        out = {"decode_attn": [], "decode_out": [], "prefill_out": []}
+        for (fi, fo), (_, po), (di, do) in zip(
+                self.kept["full"], self.kept["prefill"],
+                self.kept["decode"]):
+            scale = max(float(fo.abs().max()), 1e-30)
+
+            def rel(a, b):
+                return float((a - b).abs().max()) / scale
+
+            out["decode_attn"].append(rel(di[:, 0], fi[:, T]))
+            out["decode_out"].append(rel(do[:, 0], fo[:, T]))
+            out["prefill_out"].append(rel(po, fo[:, :T]))
+        return {k: [float(f"{v:.3e}") for v in vs] for k, vs in out.items()}
+
+
 def family_flops(q, k, v, causal) -> float:
     """K6's products (``csrc/flash_attention.cu`` bounds): S and P.V."""
     B, Tq, H, D = q.shape
@@ -1413,19 +1990,30 @@ def serve_family(arch, changes, reduced, root, seed):
         return decode_step(cfg32, params, cache, full["tokens"][:, T:],
                            pos_t)[0]
 
-    with torch.no_grad():
+    layer_gaps = None
+    with torch.no_grad(), LayerTap() as tap:
+        # the MoE models' residual streams, layer by layer (ROADMAP Queue 3
+        # item 2: where the pinned path leaves the full forward)
+        tap.mode = "full" if cfg.moe is not None else None
         with RoutingPin() as pin:                  # records the routing
             full_lg = full_logits(cfg32, params, full)[:, -1]
+        tap.mode = None
         free = prefill_decode() if pin.log else None
         if pin.log:
+            tap.mode = "prefill" if cfg.moe is not None else None
             with pin.replay(0):
                 _, cache = prefill(cfg32, params, batch, SERVE_MAX_LEN)
+            tap.mode = "decode" if cfg.moe is not None else None
             with pin.replay(T):
                 got = decode_step(cfg32, params, cache,
                                   full["tokens"][:, T:], pos_t)[0]
+            tap.mode = None
             del cache
         else:
             got = prefill_decode()
+        if tap.kept:
+            layer_gaps = tap.gaps(T)
+            tap.kept.clear()
     gap = float((got - full_lg).abs().max())
     top = max(float(full_lg.abs().max()), 1.0)
     check(gap <= FAM_CONSISTENCY_TOL * top,
@@ -1449,6 +2037,10 @@ def serve_family(arch, changes, reduced, root, seed):
            "held_before_gib": round(held / 2 ** 30, 2),
            "peak_reckoned_gib": predicted["total"]}
     print(f"families: {arch}: {json.dumps(fig)}")
+    if layer_gaps is not None:
+        print(f"families: {arch}: pinned prefill + decode against the full "
+              f"forward, per layer, max |Δ| / max |layer output|: "
+              f"{json.dumps(layer_gaps)}")
     print(f"families: {arch}: K6 at q {tuple(q.shape)} v {tuple(v.shape)} "
           f"causal={kw['causal']} within {fa_tol(q.dtype)} of the plain "
           f"version (max |Δ| {k6_err:.6f}); f32 prefill + decode against "
@@ -1488,7 +2080,10 @@ TRAIN_LAYERS = 12
 TRAIN_B, TRAIN_T = 2, 1024
 TRAIN_STEPS = 5              # the straight run
 SAVE_STEP = 2                # scrutinized and full saves after this step
-SMOKE_ARCHS = ("xlstm-125m", TRAIN_ARCH)
+# the launcher's smoke run: (arch, --seq).  xlstm-125m's participation
+# traces its sLSTM/mLSTM step by step (about 1.5 ms a node on the card's
+# host): 32 tokens, cut from 64 for the script's time
+SMOKE_ARCHS = (("xlstm-125m", 32), (TRAIN_ARCH, 64))
 
 
 class KernelCheck:
@@ -1793,6 +2388,37 @@ def phase_training(root: str):
     save("scrutinized", lambda s: rep)
     save_peak = torch.cuda.max_memory_allocated()
     save_held = torch.cuda.memory_allocated()    # the report still alive
+    # the same state and report saved by four host threads: each clones
+    # its owned quarter of every all-critical leaf at save() (the
+    # optimizer updates the state in place), the moments cost nothing
+    coord_root = os.path.join(root, "coordinated")
+    kept_bytes = sum(t.nbytes for n, t in _tree.flatten_with_names(state)[0]
+                     if not n.startswith(("opt/mu/", "opt/nu/")))
+    coord_reckoned = save_held + kept_bytes
+
+    def coord_save(p, coll):
+        from repro_torch.checkpoint import CoordinatedCheckpointManager
+        with CoordinatedCheckpointManager(
+                [Level(coord_root, keep_n=1)], collective=coll,
+                scrutiny_fn=lambda s: rep, partner_replication=False,
+                device=DEV) as mgr:
+            t0 = time.perf_counter()
+            mgr.save(SAVE_STEP, state, block=False)
+            blocked = mgr.last_save_stats["blocked_s"]
+            stats = mgr.wait()
+            torch.cuda.synchronize()
+            return {"blocked_s": round(blocked, 4),
+                    "save_s": round(time.perf_counter() - t0, 4),
+                    "d2h": stats["d2h_bytes"],
+                    "written": stats["host_bytes_written"]}
+
+    torch.cuda.reset_peak_memory_stats()
+    coord = hosts_ok(*host_threads(HOSTS, os.path.join(root, "rdv"),
+                                   coord_save), "training: coordinated save")
+    coord_peak = torch.cuda.max_memory_allocated()
+    check(sum(c["written"] for c in coord) == kept_bytes,
+          f"training: the hosts wrote {[c['written'] for c in coord]} B, "
+          f"not the kept leaves' {kept_bytes} B")
     del rep
     torch.cuda.empty_cache()
     # what both restores must give back exactly: all but the moments
@@ -1839,7 +2465,6 @@ def phase_training(root: str):
     # the fill; the next loss bitwise, the later ones as they come.  The
     # moments (no critical element) send no mask bits and launch no K4:
     # H2D is exactly the kept leaves' bytes
-    kept_bytes = sum(t.nbytes for t in keep.values())
     st = restore("scrutinized")
     check(saves["scrutinized"]["h2d"] == kept_bytes
           and saves["scrutinized"]["k4"] == 0,
@@ -1850,20 +2475,46 @@ def phase_training(root: str):
     check(scr[0] == want[0], f"scrutinized restore: step {SAVE_STEP + 1} "
           f"loss {scr[0]!r} is not the straight run's {want[0]!r}")
     gap = [s_ - w for s_, w in zip(scr, want)]
+    del st
+    torch.cuda.empty_cache()
+    shutil.rmtree(os.path.join(root, "full"))   # 20 GB of disk, restored
+    # the coordinated checkpoint onto one host, and its continuation
+    K.reset_launches()
+    FK.reset_launches()
+    LK.reset_launches()
+    # ---- the coordinated training path: counts from 0 here ---------------
+    from repro_torch.checkpoint import CoordinatedCheckpointManager
+    with CoordinatedCheckpointManager([Level(coord_root)], device=DEV) as mgr:
+        (step, st), coord_restore_s = synced(lambda: mgr.restore(like))
+        coord_rst = dict(mgr.last_restore_stats)
+    check(step == SAVE_STEP, f"coordinated restore gave step {step}")
+    for n, t in _tree.flatten_with_names(st)[0]:
+        check(same_bytes(t, keep[n]) if n in keep else not bool(t.any()),
+              f"coordinated restore: {n} differs")
+    coord_cont = _train(step_fn, cfg, st, TRAIN_STEPS - SAVE_STEP)
+    coord_launches = {**{k: K.LAUNCHES[k] for k in CKPT_KERNELS},
+                      **LK.LAUNCHES, **FK.LAUNCHES}
+    # ---- end of the coordinated training path ----------------------------
+    shutil.rmtree(coord_root)
+    check(coord_cont == scr, f"coordinated restore: losses {coord_cont} "
+          f"are not the scrutinized single-process restore's {scr}")
+    check(coord_rst["h2d_bytes"] == kept_bytes,
+          f"coordinated restore: h2d {coord_rst['h2d_bytes']} B, not the "
+          f"kept leaves' {kept_bytes} B")
     del st, keep, like
     torch.cuda.empty_cache()
     peak = max(peak_before, full_save_peak, scrutiny_peak, save_peak,
-               torch.cuda.max_memory_allocated())
+               coord_peak, torch.cuda.max_memory_allocated())
     custom_ops = traced_custom_ops()
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the training path was never launched: {launches}")
 
     # the launcher, as a user runs it, then resumed
     smoke = {}
-    for arch in SMOKE_ARCHS:
+    for arch, seq in SMOKE_ARCHS:
         d = os.path.join(root, "launcher", arch)
         args = ["--arch", arch, "--preset", "smoke", "--batch", "2",
-                "--seq", "64", "--ckpt-every", "10", "--scrutinize",
+                "--seq", str(seq), "--ckpt-every", "10", "--scrutinize",
                 "--ckpt-dir", d, "--log-every", "1000", "--device", DEV]
         first, first_s = synced(lambda: launch.main(args + ["--steps",
                                                              "30"]))
@@ -1904,6 +2555,16 @@ def phase_training(root: str):
           f"scrutinized restore: step {SAVE_STEP + 1} loss bitwise equal, "
           f"loss gap at steps {SAVE_STEP + 1}-{TRAIN_STEPS} "
           f"{json.dumps(gap)} (the moments were dropped)")
+    print(f"training: coordinated save by {HOSTS} host threads (the "
+          f"scrutinized save's report; no L2 replicas): per host "
+          f"{json.dumps(coord)}; restored onto one host (4 → 1, range "
+          f"reads) restore_s={coord_restore_s:.4f} h2d "
+          f"{coord_rst['h2d_bytes']} B; steps {SAVE_STEP + 1}-{TRAIN_STEPS}"
+          f" losses {json.dumps(coord_cont)} bit-identical to the "
+          f"scrutinized single-process restore's; peak device memory "
+          f"during the save {coord_peak / 2 ** 30:.2f} GiB (reckoned "
+          f"{coord_reckoned / 2 ** 30:.2f} GiB: held + the clones of the "
+          f"kept leaves); launches {json.dumps(coord_launches)}")
     print(f"training: launcher smoke (first loss, loss at 30, loss at 40 "
           f"after --resume, seconds of the first run) {json.dumps(smoke)}")
     print(f"training: the launcher's resume traced on the card (smoke "
@@ -1919,7 +2580,7 @@ def phase_training(root: str):
     print(f"training: launches {json.dumps(launches)}; per train step "
           f"{json.dumps(per_step)}; mask kernels {json.dumps(mask_launches)}"
           f" (the saved leaves are all or none critical)")
-    return launches, per_step, kc.inputs, mask_launches
+    return launches, per_step, kc.inputs, mask_launches, coord_launches
 
 
 # ----------------------------------------------------------------------------
@@ -2518,20 +3179,27 @@ def main() -> None:
     phase_setup()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         launches, main_state = phase_main_path(os.path.join(tmp, "main"))
+        coord_launches = phase_coordinated(os.path.join(tmp, "coordinated"),
+                                           main_state,
+                                           os.path.join(tmp, "main"))
+        phase_coordinated_processes(os.path.join(tmp, "processes"))
         phase_bench_bytes(os.path.join(tmp, "bench"))
         serve_launches, fa_in = phase_serving(os.path.join(tmp, "serve"))
         fam_launches, fam_k6 = phase_families(os.path.join(tmp, "families"))
         npb_launches, k5_inputs = phase_npb(os.path.join(tmp, "npb"))
         rows = phase_timing(main_state, fa_in, k5_inputs, fam_k6)
         del main_state, fa_in, k5_inputs, fam_k6
-        train_launches, per_step, train_in, train_mask = phase_training(
-            os.path.join(tmp, "train"))
+        (train_launches, per_step, train_in, train_mask,
+         train_coord) = phase_training(os.path.join(tmp, "train"))
     rows += phase_timing_training(train_launches, per_step, train_in)
     # every kernel's launches summed over the paths it runs on, each path
     # counted from 0 just before it and read just after
     paths = {"main": launches, "serving": serve_launches,
              "families": fam_launches, "npb": npb_launches,
-             "training": dict(train_launches, **train_mask)}
+             "training": dict(train_launches, **train_mask),
+             "coordinated": {k: coord_launches.get(k, 0)
+                             + train_coord.get(k, 0)
+                             for k in set(coord_launches) | set(train_coord)}}
     for r in rows:
         r["launches"] = sum(p.get(r["name"], 0) for p in paths.values())
     print(f"launches by path: {json.dumps(paths)}; in all "

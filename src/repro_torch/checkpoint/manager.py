@@ -142,9 +142,19 @@ class _ChainState:
     sources: Optional[Dict[str, Any]] = None
 
 
+def _host_snapshot(leaf) -> np.ndarray:
+    """Isolation-safe host snapshot of one leaf: a copy that shares no
+    memory with it.  The reference's zero-copy ``np.asarray`` relies on
+    jax arrays being immutable; a torch leaf (on the CPU too) is updated
+    in place by the optimizer, so a view would let a later step reach a
+    save still in flight."""
+    return to_host(leaf, copy=True)
+
+
 def update_report(scrutiny_fn, prev, saves: int, every: int, state,
                   check=None):
-    """The scrutiny schedule: run ``scrutiny_fn`` when there is no report
+    """The scrutiny schedule (shared by this manager and the multi-host
+    coordinator): run ``scrutiny_fn`` when there is no report
     yet or the re-scrutinize interval fires.  A device report
     re-scrutinizes incrementally (``DeviceReport.reuse_unchanged``): an
     unchanged re-scrutiny returns the *identical* report object, which is
@@ -265,7 +275,7 @@ class _SaveSnapshot:
         on_card = False
         for name, leaf, rep, kind in self.items:
             if kind == "host" or self.engine == "host":
-                self._views[name] = to_host(leaf, copy=True)
+                self._views[name] = _host_snapshot(leaf)
                 continue
             on_card = on_card or leaf.device.type == "cuda"
             # device engine: clone / pack now, on the caller's stream, so
@@ -597,7 +607,7 @@ class CheckpointManager:
         self._tel_futs: List[cf.Future] = []
         self._chains: Dict[str, _ChainState] = {}
         self._lock = threading.Lock()
-        # telemetry bundle (tracer + metrics registry)
+        # telemetry bundle (tracer + metrics registry + drift tracker)
         self.obs = obs_mod.get_obs()
         self.last_save_stats: Optional[Dict[str, Any]] = None
         self.last_restore_stats: Optional[Dict[str, Any]] = None
@@ -678,6 +688,9 @@ class CheckpointManager:
             # live view, not frozen: device reports account their lazy
             # mask D2H into this dict when materialized
             self.last_scrutiny_stats = getattr(new, "stats", None)
+            if new is not None and self.obs.enabled:
+                with self.obs.tracer.span("scrutiny.drift"):
+                    self.obs.drift.observe(new, step=self._saves)
         self._report = new
         return self._report
 

@@ -213,7 +213,7 @@ def pack_leaf_from_payload(name: str, shape: Tuple[int, ...], dtype: str,
     """Assemble the on-disk ``PackedLeaf`` from an already-gathered payload.
 
     ``payload_arr`` holds the critical elements of the (flattened) leaf in
-    order — exactly what ``kernels/mask_pack`` + ``gather_payload`` move over
+    order — exactly what ``kernels/mask_pack``'s ``pack_group`` moves over
     D2H.  The result is byte-identical to ``pack_leaf`` on the full host
     array with the same mask (no precision tiering on this path; the manager
     falls back to the host path when tiers are enabled).

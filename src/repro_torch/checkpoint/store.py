@@ -25,15 +25,17 @@ managers pointed at one directory cannot delete each other's in-flight
 step — while legacy untokened dirs and dirs whose owner stopped refreshing
 are swept as before.
 
-**Coordinated (multi-host) checkpoints**, as the reference's coordinator
-writes them, are read here (their writers are not part of this package
-yet): every host's shards (``shard_h<p>_<k>.bin`` + a per-host manifest)
-under one *global* manifest whose leaves are ``segmented`` — per leaf, an
-ordered list of flat element ranges, each backed by one host's file — and
-a ``commit.json`` marker.  A coordinated step without its marker is *not*
-committed and is invisible to ``latest()``; single-process checkpoints
-never carry a marker and their atomic rename remains the commit.  ``load_checkpoint_raw``
-reassembles segmented leaves (and per-segment delta chains) into ordinary
+**Coordinated (multi-host) checkpoints** (``checkpoint/coordinator.py``):
+every process writes only the shards it owns (``shard_h<p>_<k>.bin`` + a
+per-host manifest, ``write_host_entries``) into a shared pending dir, then
+a leader fuses them into one *global* manifest (``fuse_global_manifest``)
+whose leaves are ``segmented`` — per leaf, an ordered list of flat element
+ranges, each backed by one host's file — renames the dir into place, and
+lands a ``commit.json`` marker (``write_commit_marker``).  A coordinated
+step without its marker is *not* committed and is invisible to
+``latest()``; single-process checkpoints never carry a marker and their
+atomic rename remains the commit.  ``load_checkpoint_raw`` reassembles
+segmented leaves (and per-segment delta chains) into ordinary
 ``PackedLeaf``s, so every restore path works unchanged on coordinated
 checkpoints; the elastic resharded restore path instead reads only the
 byte ranges intersecting its local shards (``ShardReader.read_range``).
@@ -156,6 +158,17 @@ def pending_step_of_entry(name: str) -> Optional[int]:
 # the fused step directory is renamed into place.  A coordinated manifest
 # without it is a partial commit and must stay invisible.
 COMMIT_MARKER = "commit.json"
+
+
+def write_commit_marker(step_dir: str, info: Dict[str, Any]) -> None:
+    """The leader's last write of a coordinated commit, after the fused
+    step directory is renamed into place."""
+    tmp = os.path.join(step_dir, f".{COMMIT_MARKER}.tmp")
+    with open(tmp, "w") as f:
+        json.dump(info, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.rename(tmp, os.path.join(step_dir, COMMIT_MARKER))
 
 
 def is_step_committed(root: str, step: int) -> bool:
@@ -549,6 +562,137 @@ def host_manifest_name(host: int) -> str:
     return f"manifest.host{int(host)}.json"
 
 
+def host_shard_prefix(host: int) -> str:
+    return f"shard_h{int(host)}_"
+
+
+def write_host_entries(pending_dir: str, host: int, entries: List[Any],
+                       shards: int = 1,
+                       extra: Optional[Dict[str, Any]] = None,
+                       prefix: Optional[str] = None,
+                       submit: Optional[Any] = None,
+                       order: Optional[Sequence[int]] = None) -> str:
+    """Phase 1 of the coordinated commit: write one host's owned entries
+    into the shared pending dir.
+
+    Shard files are namespaced per host (``shard_h<p>_<k>.bin``) so hosts
+    never contend on a file, and the per-host manifest is written last via
+    rename — its presence means this host's bytes are durably complete.
+    ``entries``: ready ``(meta, length, source)`` stream items or
+    ``PackedLeaf``/``DeltaLeaf``/``StreamLeaf`` values; metas carry the
+    segment's flat element range (``start``/``stop``) and the leaf's
+    *global* shape.  ``prefix`` overrides the shard-file prefix (the
+    degraded-save recovery writes a dead host's entries under a distinct
+    prefix, so a stalled-but-alive original writer can never race the
+    recovered bytes).  ``submit``/``order`` thread through to the stream
+    writer (overlapped per-shard writes / serial consumption order).
+    """
+    items = [e if isinstance(e, tuple) else _as_stream_item(e)
+             for e in entries]
+    # shared liveness file (any host's refresh counts): a sweeping leader
+    # must see a long-streaming phase 1 as alive
+    alive = os.path.join(pending_dir, ALIVE_FILE)
+    with open(alive, "w"):
+        pass
+    index, shard_sizes = _stream_to_files(
+        pending_dir, items, shards,
+        prefix=prefix if prefix is not None else host_shard_prefix(host),
+        submit=submit, order=order, touch=alive)
+    manifest = {"host": int(host), "shards": int(shards),
+                "payload_bytes": int(sum(shard_sizes)), "leaves": index}
+    if extra:
+        manifest.update(extra)
+    final = os.path.join(pending_dir, host_manifest_name(host))
+    tmp = final + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(manifest, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.rename(tmp, final)
+    return final
+
+
+def fuse_global_manifest(pending_dir: str, step: int, process_count: int,
+                         manifest_extra: Optional[Dict[str, Any]] = None,
+                         host_manifests: Optional[Dict[int, Dict[str, Any]]]
+                         = None) -> Dict[str, Any]:
+    """Phase 2 (leader): fuse the per-host manifests into one *global*
+    manifest describing every leaf as an ordered list of segments.
+
+    Validates that all ``process_count`` hosts landed and that each leaf's
+    segments tile its flat range exactly once; raises on gaps/overlaps so
+    a mis-partitioned save can never commit.  The fused manifest is
+    written atomically as ``manifest.json`` inside the pending dir.
+    ``host_manifests``: already-parsed per-host manifests; missing hosts
+    are read from disk."""
+    hosts = dict(host_manifests or {})
+    for p in range(process_count):
+        if p in hosts:
+            continue
+        path = os.path.join(pending_dir, host_manifest_name(p))
+        if not os.path.exists(path):
+            raise FileNotFoundError(
+                f"coordinated step {step}: host {p} manifest missing")
+        with open(path) as f:
+            hosts[p] = json.load(f)
+
+    by_name: Dict[str, List[Dict[str, Any]]] = {}
+    info: Dict[str, Dict[str, Any]] = {}
+    order: List[str] = []
+    for p in sorted(hosts):
+        for e in hosts[p]["leaves"]:
+            name = e["name"]
+            if name not in by_name:
+                by_name[name] = []
+                order.append(name)
+            by_name[name].append(dict(e, host=p))
+            info.setdefault(name, {"shape": e["shape"],
+                                   "dtype": e["dtype"]})
+
+    leaves = []
+    payload_bytes = 0
+    full_bytes = 0
+    for name in order:
+        segs = sorted(by_name[name], key=lambda e: int(e["start"]))
+        shape = info[name]["shape"]
+        n = int(np.prod(shape or [1]))
+        cursor = 0
+        for s in segs:
+            if int(s["start"]) != cursor:
+                raise ValueError(
+                    f"coordinated step {step}: leaf {name} segments have a "
+                    f"gap/overlap at element {cursor} (next segment starts "
+                    f"at {s['start']})")
+            cursor = int(s["stop"])
+            payload_bytes += int(s["length"])
+        if cursor != n:
+            raise ValueError(
+                f"coordinated step {step}: leaf {name} segments cover "
+                f"[0, {cursor}) of {n} elements")
+        full_bytes += n * itemsize(info[name]["dtype"])
+        seg_entries = [{k: v for k, v in s.items() if k != "shape"}
+                       for s in segs]
+        leaves.append({"name": name, "shape": list(shape),
+                       "dtype": info[name]["dtype"],
+                       "encoding": "segmented", "segments": seg_entries})
+
+    manifest = {"step": int(step), "shards": 0, "parity": False,
+                "coordinated": {"process_count": int(process_count),
+                                "format": "coordinated-v1"},
+                "leaves": leaves,
+                "payload_bytes": int(payload_bytes),
+                "full_bytes": int(full_bytes)}
+    if manifest_extra:
+        manifest.update(manifest_extra)
+    tmp = os.path.join(pending_dir, ".manifest.json.tmp")
+    with open(tmp, "w") as f:
+        json.dump(manifest, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.rename(tmp, os.path.join(pending_dir, "manifest.json"))
+    return manifest
+
+
 def save_checkpoint(root: str, step: int, state: Any,
                     report: Optional[CriticalityReport] = None,
                     precision: Optional[PrecisionPolicy] = None,
@@ -726,6 +870,20 @@ class ShardReader:
             raise IOError(f"shard file {fname} truncated in {self.d}")
         self.stats["bytes_read"] += length
         return data
+
+
+def _read_shard(d: str, k: int, shards: int) -> bytes:
+    """Whole-shard read with partner-XOR fallback (for callers that want
+    the full blob; the loader itself streams per leaf)."""
+    r = ShardReader(d, shards)
+    try:
+        path = os.path.join(d, f"shard_{k}.bin")
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                return f.read()
+        return r._rebuild(k)
+    finally:
+        r.close()
 
 
 # --------------------------------------------------------------------------

@@ -5,9 +5,13 @@ masks: ``state_from_numpy`` turns the reference's state, as numpy arrays,
 into the port's tensors (same names, same order), ``params_from_numpy``
 does the same for a model's parameters and checks them against the port's
 own ``init_params``, and ``report_from_masks`` builds a port report from
-the reference's host masks.  None imports the reference package; the
-reference's bf16 arrays arrive as any array with a ``bfloat16`` dtype name
-and go through their raw bits.
+the reference's host masks.  The other direction: ``state_to_numpy`` gives
+a port state's leaves as host arrays (bf16 as its uint16 bits, with
+``dtype_names`` naming each leaf's dtype) and ``masks_from_report`` a
+report's masks, from which the reference's state and report are built, so
+both packages write the same step directory.  None imports the reference
+package; the reference's bf16 arrays arrive as any array with a
+``bfloat16`` dtype name and go through their raw bits.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import torch
 
 from repro_torch import _tree
 from repro_torch._tensors import (alloc_device, from_host, itemsize,
-                                  leaf_dtype_name)
+                                  leaf_dtype_name, to_host)
 from repro_torch.core.criticality import CriticalityReport, LeafReport
 from repro_torch.core.policy import LeafPolicy
 from repro_torch.core.regions import RegionTable
@@ -77,3 +81,26 @@ def report_from_masks(masks: Dict[str, np.ndarray], state: Any,
             mask=mask, table=RegionTable.from_mask(mask, itemsize(dt)),
             magnitude=None)
     return CriticalityReport(leaves=leaves)
+
+
+def state_to_numpy(tree: Any) -> Any:
+    """The same pytree with every tensor leaf as a host array (a copy; bf16
+    as its uint16 bits)."""
+    named, treedef = _tree.flatten_with_names(tree)
+    return _tree.unflatten(treedef, [to_host(l, copy=True)
+                                     for _, l in named])
+
+
+def dtype_names(tree: Any) -> Dict[str, str]:
+    """Leaf name → dtype name (``"bfloat16"`` where ``state_to_numpy``
+    gives uint16 bits)."""
+    return {n: leaf_dtype_name(l)
+            for n, l in _tree.flatten_with_names(tree)[0]}
+
+
+def masks_from_report(report: CriticalityReport) -> Dict[str, np.ndarray]:
+    """Flat bool masks of a report's leaves that are not all critical (the
+    leaves a reference report must carry to reduce the same way)."""
+    return {name: np.asarray(leaf.mask, bool).reshape(-1).copy()
+            for name, leaf in report.leaves.items()
+            if not leaf.all_critical}

@@ -1,1 +1,2 @@
-"""Single-device subset of ``repro.distributed`` used by the manager."""
+"""Multi-host coordination (``collective``) and the partition rules and
+leading-axis layouts (``sharding``) of the port."""

@@ -31,6 +31,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import struct
+import threading
 from typing import Dict, List, Sequence
 
 import torch
@@ -44,10 +45,13 @@ BITPACK_BLOCK = 1024
 UNPACK_GROUP_LEAVES = 32
 
 # Launches per wrapper since the last reset_launches(): a run reads these
-# to show that its main path went through the kernels.
+# to show that its main path went through the kernels.  Several host
+# threads launch at once (a coordinated save's hosts), so counts are added
+# under a lock.
 LAUNCHES: Dict[str, int] = {"threshold_bitpack": 0, "pack": 0,
                             "delta_flags": 0, "mask_scatter": 0,
                             "unpack": 0}
+_LAUNCHES_LOCK = threading.Lock()
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -68,8 +72,14 @@ BUILD_INFO = LIBRARY.info
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCHES_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _count(name: str) -> None:
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
 
 
 def load_library() -> ctypes.CDLL:
@@ -103,7 +113,7 @@ def bitpack(mag: torch.Tensor, tol: float):
         else lib.mp_bitpack_f64
     check_launch(fn(mag.data_ptr(), float(tol), n, words.data_ptr(),
                     counts.data_ptr(), stream_of(mag)), "threshold_bitpack")
-    LAUNCHES["threshold_bitpack"] += 1
+    _count("threshold_bitpack")
     return words.view(torch.uint8)[:(n + 7) // 8], counts
 
 
@@ -158,7 +168,7 @@ def pack_into(flat: torch.Tensor, words: torch.Tensor, dst: torch.Tensor,
             None if tiled else ends.data_ptr(), dst.data_ptr(),
             dst.shape[0], counts.data_ptr() if tiled else None,
             flat.element_size(), stream_of(flat)), "pack")
-        LAUNCHES["pack"] += 1
+        _count("pack")
     return counts
 
 
@@ -175,7 +185,7 @@ def delta_flags(curr8: torch.Tensor, base8: torch.Tensor,
     check_launch(lib.mp_delta_flags(curr8.data_ptr(), base8.data_ptr(), n,
                                     int(chunk), flags.data_ptr(),
                                     stream_of(curr8)), "delta_flags")
-    LAUNCHES["delta_flags"] += 1
+    _count("delta_flags")
     return flags
 
 
@@ -210,7 +220,7 @@ def mask_scatter(payload: torch.Tensor, words: torch.Tensor, n: int,
                                      ends.data_ptr(), lo, hi, out.data_ptr(),
                                      payload.element_size(),
                                      stream_of(payload)), "mask_scatter")
-    LAUNCHES["mask_scatter"] += 1
+    _count("mask_scatter")
     return out
 
 
@@ -291,5 +301,5 @@ def unpack_group(packs: Sequence[torch.Tensor],
             part = rows[lo:lo + UNPACK_GROUP_LEAVES]
             check_launch(lib.mp_unpack_group(b"".join(part), len(part),
                                              stream), "unpack")
-            LAUNCHES["unpack"] += 1
+            _count("unpack")
     return outs

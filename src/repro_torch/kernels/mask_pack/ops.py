@@ -5,12 +5,14 @@ Device-resident checkpoint path (the save hot path):
     payload, counts = pack_group(flats, words, totals)   # K2, one payload
     payload_h = fetch(payload)                          # D2H: critical bytes
 
-K2 (``pack``, ``pack_group``, ``pack_critical``), K4 (``mask_scatter``)
+K2 (``pack``, ``pack_group``), K4 (``mask_scatter``)
 and K5 (``unpack``, ``unpack_group``) take the mask as
 ``np.packbits``-order words, (ceil(N/8),) uint8: what K1 writes, what the
 scrutiny report keeps on the device and what a checkpoint's bitmap
 stores.  Nothing widens them to a byte mask on the card;
-``mask_to_words`` packs a bool mask for callers that hold one.
+``mask_to_words`` packs a bool mask for callers that hold one, and
+``segment_words`` cuts the words of a flat element range out of a leaf's
+(a coordinated save packs each host's owned segment of a leaf).
 
 ``unpack_group`` (K5) is the inverse of the tiled ``pack`` (K2): the
 restart of the NPB programs rebuilds all of a program's leaves from their
@@ -39,7 +41,6 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from repro_torch._tensors import to_host
 from repro_torch.kernels.mask_pack import kernel as K
 from repro_torch.kernels.mask_pack import ref
 from repro_torch.kernels.mask_pack.ref import (BITPACK_BLOCK, BLOCK,
@@ -47,10 +48,9 @@ from repro_torch.kernels.mask_pack.ref import (BITPACK_BLOCK, BLOCK,
                                                mask_to_words)
 
 __all__ = ["DELTA_CHUNK_BYTES", "as_bytes", "delta_encode",
-           "expand_mask_bits", "gather_payload", "mask_scatter",
-           "mask_to_words", "pack", "pack_critical", "pack_group",
-           "pack_to_payload", "payload_to_packed", "threshold_bitpack",
-           "unpack", "unpack_group"]
+           "expand_mask_bits", "mask_scatter", "mask_to_words", "pack",
+           "pack_group", "segment_words", "threshold_bitpack", "unpack",
+           "unpack_group"]
 
 # Chunk granularity of the delta format, in bytes — a multiple of every
 # leaf itemsize so chunks never split an element.  The host encoder
@@ -144,13 +144,6 @@ def unpack(packed: torch.Tensor, words: torch.Tensor, *, n: int,
     return unpack_group([packed], [words], [n], block=block, fill=fill)[0]
 
 
-def gather_payload(packed: torch.Tensor, counts: torch.Tensor, *,
-                   total: int) -> torch.Tensor:
-    """Compact the per-tile critical prefixes of ``packed`` into one dense
-    (total,) payload (plain torch on either device, as in the reference)."""
-    return ref.gather_payload_ref(packed, counts, total)
-
-
 def pack_group(flats: Sequence[torch.Tensor], words: Sequence[torch.Tensor],
                totals: Sequence[int], *, block: int = BLOCK):
     """Batched pack for the pipelined save engine: compacts every leaf of a
@@ -193,22 +186,6 @@ def pack_group(flats: Sequence[torch.Tensor], words: Sequence[torch.Tensor],
             counts.append(c)
         lo += t
     return payload, torch.cat(counts)
-
-
-def pack_critical(flat: torch.Tensor, words: torch.Tensor, *,
-                  block: int = BLOCK):
-    """Device-resident save path for one flat leaf (``words``: its mask,
-    ``np.packbits`` order).
-
-    Returns ``(payload, counts, d2h_bytes)``: ``payload`` a host numpy array
-    of exactly the critical elements (leaf order; bf16 as uint16 bits),
-    ``counts`` the per-tile critical counts, ``d2h_bytes`` what crossed
-    device→host (payload + counts; the full leaf never moves)."""
-    packed, counts = pack(flat, words, block=block)
-    counts_h = counts.cpu().numpy()                  # D2H: 4 B / tile
-    total = int(counts_h.sum())
-    payload_h = to_host(gather_payload(packed, counts, total=total))
-    return payload_h, counts_h, payload_h.nbytes + counts_h.nbytes
 
 
 def mask_scatter(payload: torch.Tensor, words: torch.Tensor, *, n: int,
@@ -310,24 +287,19 @@ def delta_encode(curr: torch.Tensor, base: torch.Tensor, *,
     return idx, payload, d2h + payload.nbytes
 
 
-def pack_to_payload(packed: np.ndarray, counts: np.ndarray) -> np.ndarray:
-    """Host-side: stream counts[i] leading elements of each tile into the
-    final contiguous payload — one boolean gather."""
-    packed = np.asarray(packed)
-    counts = np.asarray(counts)
-    if not len(counts):
-        return packed.reshape(-1)[:0]
-    valid = np.arange(packed.shape[1])[None, :] < counts[:, None]
-    return packed[valid]
-
-
-def payload_to_packed(payload: np.ndarray, counts: np.ndarray,
-                      block: int) -> np.ndarray:
-    """Host-side inverse of :func:`pack_to_payload` (vectorized scatter)."""
-    payload = np.asarray(payload)
-    counts = np.asarray(counts)
-    nb = len(counts)
-    out = np.zeros((nb, block), payload.dtype)
-    valid = np.arange(block)[None, :] < counts[:, None]
-    out[valid] = payload[: int(counts.sum())]
-    return out
+def segment_words(words: torch.Tensor, start: int, stop: int) -> torch.Tensor:
+    """The ``np.packbits`` words of elements ``[start, stop)`` of a mask
+    given as ``words``, on the words' device: a view of the words when
+    ``start`` is on a byte, else the bits shifted left by ``start % 8``
+    across each byte pair (tail bits past ``stop`` as they fall; K2 and
+    K4 ignore them).  Plain byte arithmetic, 1 bit per element read."""
+    words = words.reshape(-1)
+    n = int(stop) - int(start)
+    nw = -(-n // 8)
+    lo, s = divmod(int(start), 8)
+    if s == 0:
+        return words[lo:lo + nw]
+    src = words[lo:lo + nw + 1].to(torch.int16)
+    if src.shape[0] < nw + 1:       # the range ends in the last byte
+        src = torch.cat([src, src.new_zeros(nw + 1 - src.shape[0])])
+    return (((src[:nw] << s) | (src[1:] >> (8 - s))) & 0xFF).to(torch.uint8)

@@ -1,13 +1,13 @@
 """End-to-end training loop with scrutinized checkpointing and restart
-(port of ``repro.launch.train``, one process).
+(port of ``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
         --steps 200 --batch 8 --seq 256 [--preset smoke] [--resume] \\
-        [--scrutinize] [--device cpu]
+        [--scrutinize] [--coordinated] [--device cpu]
 
 The loop wires the port's substrates together: the data pipeline
 (resumable, its state checkpointed), the train step, the async multi-level
-``CheckpointManager`` with the AD-scrutinized reduction, and restart from
+checkpoint manager with the AD-scrutinized reduction, and restart from
 the newest complete checkpoint.  It runs on the card unless ``--device
 cpu`` is given.
 
@@ -17,14 +17,23 @@ the reference does.  ``--verify-static`` scrutinizes with the AD engine
 instead, its sweep pruned by the static analyzer
 (``ScrutinyConfig(static_prune=True)``), and gates every report on the
 AD ⊆ static soundness check (``analysis.soundness_checker``) before it
-reduces a checkpoint.  The multi-host path (``--coordinated``,
-``--coord-dir``: ROADMAP Queue 1 item 10) raises ``NotImplementedError``.
+reduces a checkpoint.
+
+The manager is always the ``CoordinatedCheckpointManager``, as in the
+reference: a job of one process delegates its saves to the pipelined
+``CheckpointManager``; a job of several (``REPRO_PROCESS_INDEX`` /
+``REPRO_PROCESS_COUNT``, or an initialized ``torch.distributed`` group)
+or ``--coordinated`` writes the coordinated format, each process its
+owned shards, with the barriers over ``--coord-dir`` (default
+``<ckpt-dir>/coord``).  ``--resume`` restores the newest committed step
+whole on every process, whatever process count saved it (the elastic
+restart).
 
 ``--preset smoke`` shrinks the model (``ArchConfig.reduced()``).  The MoE
 archs (``--arch olmoe-1b-7b``, ``deepseek-v3-671b``) train with the aux
-loss in their loss; at full width they wait for item 10's sharding
-(olmoe-1b-7b's 6.92 B parameters are 110 GB with f32 gradients and AdamW
-moments, more than one card holds).
+loss in their loss; at full width they wait for the data-parallel step
+(ROADMAP Queue 1 item 10b: olmoe-1b-7b's 6.92 B parameters are 110 GB with
+f32 gradients and AdamW moments, more than one card holds).
 """
 
 from __future__ import annotations
@@ -38,11 +47,13 @@ import time
 import torch
 
 from repro_torch._tensors import resolve_device
-from repro_torch.checkpoint import CheckpointManager, Level
+from repro_torch.checkpoint import CoordinatedCheckpointManager, Level
 from repro_torch.configs import get_config
 from repro_torch.analysis import soundness_checker
 from repro_torch.core import ScrutinyConfig, participation, scrutinize
 from repro_torch.data import pipeline as data_pipeline
+from repro_torch.distributed.collective import (current_context,
+                                                get_collective)
 from repro_torch.models import count_params, init_params, loss_fn
 from repro_torch.train.optim import OptConfig, init_opt
 from repro_torch.train.step import make_train_step
@@ -107,9 +118,11 @@ def _parser() -> argparse.ArgumentParser:
                          "sweep with the static analyzer, and gate every "
                          "report on the AD⊆static soundness check")
     ap.add_argument("--coordinated", action="store_true",
-                    help="not ported yet (ROADMAP Queue 1 item 10)")
+                    help="write the coordinated (multi-host) checkpoint "
+                         "format even on one process")
     ap.add_argument("--coord-dir", default=None,
-                    help="not ported yet (ROADMAP Queue 1 item 10)")
+                    help="shared rendezvous dir of the coordinated save "
+                         "(default <ckpt-dir>/coord)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--task", default="lm", choices=["lm", "copy"],
                     help="lm: next-token; copy: identity (fast smoke signal)")
@@ -121,10 +134,6 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    if args.coordinated or args.coord_dir is not None:
-        raise NotImplementedError(
-            "the coordinated multi-host save is not ported yet (ROADMAP "
-            "Queue 1 item 10)")
     device = resolve_device(args.device)
 
     cfg = get_config(args.arch)
@@ -160,14 +169,27 @@ def main(argv=None):
                 return participation(resume, s, config=ScrutinyConfig(),
                                      device=device)
 
-    mgr = CheckpointManager(
+    # Coordinated when the job spans processes (the REPRO_PROCESS_*
+    # simulation or a torch.distributed group); a single-process job
+    # delegates to the pipelined manager inside, so the wiring is
+    # unconditional, as in the reference.
+    ctx = current_context()
+    coordinated = args.coordinated or ctx.count > 1
+    collective = get_collective(
+        coord_dir=args.coord_dir or os.path.join(args.ckpt_dir, "coord"))
+    parity = not coordinated             # per-host parity: a future level
+    mgr = CoordinatedCheckpointManager(
         [Level(os.path.join(args.ckpt_dir, "ram"), interval=args.ckpt_every,
                keep_n=2),
          Level(os.path.join(args.ckpt_dir, "disk"),
                interval=args.ckpt_every * 4, keep_n=2, shards=2,
-               parity=True)],
-        scrutiny_fn=scrutiny_fn, soundness_check=soundness_check,
-        device=device)
+               parity=parity)],
+        collective=collective, scrutiny_fn=scrutiny_fn,
+        soundness_check=soundness_check,
+        force_coordinated=args.coordinated, device=device)
+    if coordinated:
+        print(f"coordinated checkpointing: process {ctx.index} of "
+              f"{ctx.count}")
 
     start = 0
     losses = []

@@ -1,12 +1,15 @@
-"""Checkpoint telemetry: spans and metrics (port of ``repro.obs``).
+"""Checkpoint telemetry fabric: spans, metrics, and criticality drift (port
+of ``repro.obs``).
 
 One :class:`Observability` bundle = a span :class:`~repro_torch.obs.trace.Tracer`
-(bound to a host's Chrome-trace ``pid``) and a
-:class:`~repro_torch.obs.metrics.MetricsRegistry`.  The module-level
-singleton (:func:`get_obs`) serves single-process users; :func:`scoped`
-gives a per-host bundle over the shared trace buffer.  The criticality
-drift tracker of the reference is not part of this package yet, so a
-fragment carries no ``drift`` records.
+(bound to a host's Chrome-trace ``pid``), a
+:class:`~repro_torch.obs.metrics.MetricsRegistry`, and a
+:class:`~repro_torch.obs.drift.DriftTracker`.  The module-level singleton
+(:func:`get_obs`) serves single-process users; a coordinated manager calls
+:func:`scoped` with its process index so every simulated/real host gets
+its own registry + drift tracker and its own process-track in the shared
+trace buffer — all hosts of a thread-simulated run land in *one*
+Perfetto-loadable file.
 
 Observability is **off by default** and off-cheap: ``span()``/``begin()``
 return no-op singletons and metric accessors return a null metric.  Enable
@@ -25,6 +28,7 @@ from __future__ import annotations
 import os
 from typing import Optional
 
+from repro_torch.obs.drift import DriftTracker
 from repro_torch.obs.metrics import (FrozenStats, MetricsRegistry,
                                      freeze_stats)
 from repro_torch.obs.trace import ObsState, TraceBuffer, Tracer
@@ -32,7 +36,7 @@ from repro_torch.obs.trace import ObsState, TraceBuffer, Tracer
 __all__ = [
     "Observability", "get_obs", "scoped", "enable", "disable", "enabled",
     "reset", "FrozenStats", "freeze_stats", "MetricsRegistry", "Tracer",
-    "TraceBuffer", "ObsState",
+    "TraceBuffer", "DriftTracker", "ObsState",
 ]
 
 
@@ -47,10 +51,15 @@ class Observability:
         self.tracer = Tracer(state, buffer, pid=self.process,
                              process_name=process_name)
         self.registry = MetricsRegistry(state)
+        self.drift = DriftTracker(self.registry)
 
     @property
     def enabled(self) -> bool:
         return self.state.enabled
+
+    #: newest drift records carried per fragment (full history stays on
+    #: the tracker) — keeps per-checkpoint telemetry O(1) over a long run
+    DRIFT_TAIL = 64
 
     def span_snapshot(self, since_mark: int = 0) -> list:
         """Own-pid events since ``since_mark`` (thread-simulated hosts share
@@ -71,6 +80,7 @@ class Observability:
             "metrics": self.registry.to_dict(),
             "published": {k: dict(v) for k, v
                           in list(self.registry.published.items())},
+            "drift": list(self.drift.history[-self.DRIFT_TAIL:]),
             "spans": (self.span_snapshot(since_mark) if events is None
                       else events),
         }
@@ -91,7 +101,8 @@ def get_obs() -> Observability:
 
 
 def scoped(process: int, process_name: Optional[str] = None) -> Observability:
-    """A per-host bundle: fresh registry, shared switch and trace buffer."""
+    """A per-host bundle: fresh registry + drift, shared switch and trace
+    buffer (so thread-simulated hosts export one merged trace)."""
     return Observability(_STATE, _BUFFER, process=process,
                          process_name=process_name)
 

@@ -5,8 +5,8 @@ The gradient is autograd's (``torch.autograd.grad``) through ``loss_fn``:
 K6 and K7 forward and backward on the card, their plain versions on the
 CPU.  The compressed data-parallel step of the reference
 (``topk_ef_compress``, ``int8_allreduce``, ``make_compressed_dp_step``)
-needs a data-parallel mesh and comes with the multi-host slice (ROADMAP
-Queue 1 item 10).
+needs a data-parallel mesh and is not ported yet (ROADMAP Queue 1 item
+10b).
 """
 
 from __future__ import annotations

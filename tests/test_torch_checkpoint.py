@@ -31,6 +31,7 @@ from repro_torch import ScrutinyConfig, scrutinize
 from repro_torch._tensors import to_host
 from repro_torch.checkpoint import manager as t_manager
 from repro_torch.convert import report_from_masks, state_from_numpy
+from repro_torch.kernels.mask_pack import ops
 
 # Small shapes: one intra-op thread each leaves the cores to the other
 # test workers.
@@ -477,14 +478,16 @@ def test_single_device_sharding_matches_reference(dtype, frac):
     np_state, masks = _case(dtype, frac, n=n)
     leaf_np, m = np_state["w"], masks["w"]
     leaf_t = state_from_numpy({"w": leaf_np}, "cpu")["w"]
-    assert t_sh.leaf_segments(leaf_t) is None
+    # the port packs a leaf as the coordinator and the manager do, with
+    # pack_group from the mask's words: the reference's sharded pack bytes
     p_r, c_r, d_r = r_sh.pack_sharded_payload(jnp.asarray(leaf_np), m,
                                               use_kernel=False)
-    p_t, c_t, d_t = t_sh.pack_sharded_payload(leaf_t, m)
-    assert p_t.tobytes() == np.asarray(p_r).tobytes() and d_t == d_r
-    assert c_t.tobytes() == np.asarray(c_r).tobytes()
-    pd_t, cd_t, dd_t = t_sh.pack_sharded_payload_device(leaf_t, m)
-    assert to_host(pd_t).tobytes() == p_t.tobytes() and dd_t == c_t.nbytes
+    pay_t, c_t = ops.pack_group([leaf_t.reshape(-1)],
+                                [torch.from_numpy(np.packbits(m))],
+                                [int(m.sum())])
+    p_t = to_host(pay_t)
+    assert p_t.tobytes() == np.asarray(p_r).tobytes()
+    assert to_host(c_t).tobytes() == np.asarray(c_r).tobytes()
     out_r, h_r = r_sh.scatter_sharded_payload(
         np.asarray(p_r), m, leaf_np.shape, leaf_np.dtype, fill=1,
         use_kernel=False)

@@ -98,18 +98,6 @@ def test_pack_scatter_match_reference(dtype, frac, n):
         assert _b(o_t) == _b(o_r), fill
 
 
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "int32"])
-@pytest.mark.parametrize("frac", [0.03, 0.5])
-def test_pack_critical_matches_reference(dtype, frac):
-    n = 1029
-    j, t = _pair(n, dtype, seed=11)
-    m, _, tm = _mask(n, frac, seed=12)
-    h_r, hc_r, d_r = R.pack_critical(j, m, use_kernel=False)
-    h_t, hc_t, d_t = T.pack_critical(t, _words(m))
-    assert h_t.tobytes() == h_r.tobytes() and d_t == d_r
-    assert hc_t.tobytes() == hc_r.tobytes()
-
-
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("frac", DENSITIES)
 @pytest.mark.parametrize("n", [1, 7, 8, 1023, 1025, 3001])
@@ -253,20 +241,6 @@ def test_negative_zero_keeps_its_bytes():
     pay, _ = T.pack_group([x], [w], [300])
     assert torch.signbit(p[0, 5]) and torch.signbit(pay[5])
     assert torch.signbit(T.mask_scatter(pay, w, n=1024)[5])
-
-
-@pytest.mark.parametrize("frac", DENSITIES)
-def test_host_payload_helpers_match_reference(frac):
-    n = 3000
-    j, t = _pair(n, "float32", seed=21)
-    m, jm, tm = _mask(n, frac, seed=22)
-    packed, counts = R.pack(j, jm, use_kernel=False)
-    packed_t, counts_t = T.pack(t, _words(m))
-    pay_r = R.pack_to_payload(np.asarray(packed), np.asarray(counts))
-    pay_t = T.pack_to_payload(to_host(packed_t), to_host(counts_t))
-    assert pay_t.tobytes() == pay_r.tobytes()
-    assert T.payload_to_packed(pay_t, to_host(counts_t), 512).tobytes() == \
-        R.payload_to_packed(pay_r, np.asarray(counts), 512).tobytes()
 
 
 # --------------------------------------------------------------------------

@@ -136,6 +136,51 @@ def test_host_modes_refused_on_the_card(monkeypatch, tmp_path, opt):
         mgr.close()
 
 
+def test_coordinated_manager_defaults_to_the_card(no_card, tmp_path):
+    """``CoordinatedCheckpointManager()`` with no card raises, as every
+    entry point; with ``device="cpu"`` it saves and restores."""
+    from repro_torch.checkpoint import CoordinatedCheckpointManager
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        CoordinatedCheckpointManager([Level(str(tmp_path))])
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        CoordinatedCheckpointManager([Level(str(tmp_path))],
+                                     force_coordinated=True)
+    with CoordinatedCheckpointManager([Level(str(tmp_path))],
+                                      force_coordinated=True,
+                                      device="cpu") as mgr:
+        mgr.save(1, {"x": torch.arange(5.0)}, block=True)
+        step, got = mgr.restore({"x": torch.zeros(5)})
+    assert step == 1 and torch.equal(got["x"], torch.arange(5.0))
+
+
+@pytest.mark.parametrize("opt", ["save_mode", "restore_mode",
+                                 "pipeline_engine"])
+def test_coordinated_host_modes_refused_on_the_card(monkeypatch, tmp_path,
+                                                    opt):
+    """The coordinator refuses host engines on the card as the manager
+    does, and a CPU tensor handed to it there raises."""
+    from repro_torch.checkpoint import CoordinatedCheckpointManager
+    CoordinatedCheckpointManager([Level(str(tmp_path))], device="cpu",
+                                 force_coordinated=True,
+                                 **{opt: "host"}).close()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for force in (True, False):
+        with pytest.raises(ValueError, match=f'{opt}="host"'):
+            CoordinatedCheckpointManager([Level(str(tmp_path))],
+                                         force_coordinated=force,
+                                         **{opt: "host"})
+    mgr = CoordinatedCheckpointManager([Level(str(tmp_path))],
+                                       force_coordinated=True)
+    try:
+        assert mgr._engine == "device"
+        with pytest.raises(ValueError, match='restore mode="host"'):
+            mgr.restore({"x": torch.ones(3)}, mode="host")
+        with pytest.raises(RuntimeError, match="tensor on cpu"):
+            mgr.save(1, {"x": torch.ones(3)})
+    finally:
+        mgr.close()
+
+
 def _fa_call():
     q = torch.ones(1, 4, 2, 8)
     return FK.flash_attention(q, q[:, :, :1], q[:, :, :1], scale=1.0,
@@ -253,9 +298,32 @@ def test_flash_attention_raises_on_other_devices():
 
 def test_package_exports():
     for name in ("scrutinize", "ScrutinyConfig", "CheckpointManager",
-                 "Level", "save_checkpoint", "load_checkpoint",
-                 "restore_state", "Engine", "get_config"):
+                 "CoordinatedCheckpointManager", "Level", "save_checkpoint",
+                 "load_checkpoint", "restore_state", "Engine", "get_config"):
         assert hasattr(repro_torch, name)
+
+
+def test_checkpoint_exports_match_reference():
+    """``repro_torch.checkpoint`` exports every name ``repro.checkpoint``
+    does (read from the reference's source, not imported: this file runs
+    on the card's machine, which has no jax)."""
+    import repro_torch.checkpoint as TC
+    tree = ast.parse((ROOT / "src" / "repro" / "checkpoint" /
+                      "__init__.py").read_text())
+    (ref_all,) = [ast.literal_eval(n.value) for n in tree.body
+                  if isinstance(n, ast.Assign)
+                  and n.targets[0].id == "__all__"]
+    assert set(ref_all) <= set(TC.__all__)
+    for name in ref_all:
+        assert hasattr(TC, name), name
+
+
+def test_new_modules_are_in_the_import_check():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("distributed/collective.py", "distributed/sharding.py",
+                "checkpoint/levels.py", "checkpoint/coordinator.py",
+                "testing/faults.py", "obs/drift.py", "obs/report.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
 
 
 # --------------------------------------------------------------------------

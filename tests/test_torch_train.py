@@ -26,6 +26,7 @@ RG-LRU scanned in another association order) or 1e-5 (forward values, as
 optimizer updates within 1e-6.
 """
 
+import json
 import shutil
 
 import jax
@@ -406,18 +407,24 @@ def test_restart_equivalence(tmp_path):
 
 @pytest.mark.parametrize("flag", ["--verify-static", "--coordinated"])
 def test_unported_launcher_paths_raise(flag, tmp_path):
-    """``--coordinated`` (item 10) raises; ``--verify-static`` (item 8,
-    ported) runs: two steps and a gated, pruned scrutiny here, its
-    checkpoints held in ``tests/test_torch_static.py``."""
+    """Both paths once raised as unported; both run now: two steps each.
+    ``--verify-static`` (item 8) a gated, pruned scrutiny, its checkpoints
+    held in ``tests/test_torch_static.py``; ``--coordinated`` (item 10) the
+    coordinated format on one process (commit marker, per-host manifest,
+    segmented leaves), its multi-process runs held in
+    ``tests/test_torch_launch_coordinated.py``."""
     args = [flag, "--ckpt-dir", str(tmp_path), "--device", "cpu"]
-    if flag == "--verify-static":
-        losses = launch.main(args + ["--steps", "2", "--batch", "2",
-                                     "--seq", "16", "--ckpt-every", "2",
-                                     "--log-every", "100"])
-        assert len(losses) == 2 and np.isfinite(losses).all()
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        launch.main(args)
+    losses = launch.main(args + ["--steps", "2", "--batch", "2",
+                                 "--seq", "16", "--ckpt-every", "2",
+                                 "--log-every", "100"])
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    if flag == "--coordinated":
+        step = tmp_path / "ram" / "step_2"
+        assert {"commit.json", "manifest.host0.json"} <= \
+            {f.name for f in step.iterdir()}
+        man = json.loads((step / "manifest.json").read_text())
+        assert man["coordinated"]["process_count"] == 1
+        assert {e["encoding"] for e in man["leaves"]} == {"segmented"}
 
 
 @pytest.fixture
