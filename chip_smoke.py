@@ -31,8 +31,14 @@ width, depth cut to fit: train steps through the RG-LRU scan and flash
 attention forward and backward, AD scrutiny of the training state, the
 scrutinized save and the save with no report (device clones), a
 coordinated save by four host threads restored onto one, restores and
-continuations, the launcher's own smoke run, and its resume traced with
-K6 and K7 as custom-op nodes).  It checks the
+continuations, the launcher's own smoke run, its resume traced with
+K6 and K7 as custom-op nodes, and one step's loss and gradients with
+rematerialization off, "full" and "dots"); the serving sessions (four
+phi4-mini-3.8b sessions on two host threads: scrutinized base and delta
+snapshots, migration to a fresh manager, a host killed mid-snapshot and
+its sessions adopted up to capacity); the compressed data-parallel step
+(recurrentgemma-2b, 3 layers) and GPipe (phi4-mini's blocks, 2 stages),
+each as two processes sharing the card in a gloo group.  It checks the
 hardware-independent byte counts of the reference bench state and times
 every kernel.  Any failed check raises and ends the run with a non-zero
 exit; the second-to-last line is the kernels JSON, the last the device
@@ -42,6 +48,7 @@ JSON.  It needs one card and imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -2287,6 +2294,53 @@ def _train(step_fn, cfg, state, steps, ms=None):
     return losses
 
 
+# the gradients with remat on against remat off: every recomputed value
+# is the same kernel or op on the same inputs, so equal is expected; the
+# bound, times each leaf's largest |gradient|, allows another summation
+# order in K6's backward
+REMAT_TOL = 1e-6
+
+
+def remat_modes(cfg, params, batch) -> dict:
+    """One training step's loss and gradients (``loss_and_grads``) with
+    remat off, "full" and "dots": ms (the first call of each apart) and
+    peak memory of each, nothing of another mode held; then the loss equal
+    across the three and the gradients within REMAT_TOL of off's."""
+    from repro_torch.models import model as model_mod
+    from repro_torch.train.step import loss_and_grads
+
+    def run(mode):
+        model_mod.set_remat_policy("dots" if mode == "off" else mode)
+        return loss_and_grads(dataclasses.replace(cfg, remat=mode != "off"),
+                              params, batch)
+
+    out, modes = {}, ("off", "full", "dots")
+    try:
+        for mode in modes:
+            # the first call of a mode apart: the first checkpointed call
+            # of a process imports torch._dynamo
+            _, first = synced(lambda: run(mode)[0])
+            torch.cuda.reset_peak_memory_stats()
+            _, dt = synced(lambda: run(mode)[0])
+            out[mode] = {"first_ms": round(first * 1e3, 3),
+                         "ms": round(dt * 1e3, 3), "peak_gib": round(
+                             torch.cuda.max_memory_allocated() / 2 ** 30, 3)}
+        base_loss, base = run("off")
+        for mode in modes[1:]:
+            loss, grads = run(mode)
+            check(float(loss) == float(base_loss), f"remat {mode}: loss "
+                  f"{float(loss)!r} is not remat off's {float(base_loss)!r}")
+            out[mode]["grad_rel"] = max(
+                float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                for a, b in zip(_tree.leaves(grads), _tree.leaves(base)))
+            check(out[mode]["grad_rel"] <= REMAT_TOL, f"remat {mode}: "
+                  f"gradients {out[mode]['grad_rel']} > {REMAT_TOL} of off's")
+            del grads
+    finally:
+        model_mod.set_remat_policy("dots")
+    return out
+
+
 def phase_training(root: str):
     from repro_torch import CheckpointManager, Level, get_config, scrutinize
     from repro_torch.data import pipeline as dp
@@ -2296,7 +2350,10 @@ def phase_training(root: str):
     from repro_torch.train.step import make_train_step
 
     t_phase = time.perf_counter()
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    # remat off on the training path: at B=2, T=1024 no policy lowers the
+    # step's peak, and each costs time (remat_modes; PERF.md §5)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS,
+                              remat=False)
     # the launcher's --preset full settings (launch/train.py)
     oc = OptConfig(kind="adamw", lr=3e-4, warmup=100, clip_norm=1.0,
                    decay_steps=TRAIN_STEPS)
@@ -2327,6 +2384,7 @@ def phase_training(root: str):
         check(any(x > b for x, b in zip(dists[what][:2], bound)),
               f"gradient: the bound {bound} passes a planted fault, {what}: "
               f"{dists[what]}")
+    remat = remat_modes(cfg, state["params"], batch1)
     del batch1, data1
 
     K.reset_launches()
@@ -2337,9 +2395,14 @@ def phase_training(root: str):
     with KernelCheck() as kc:                   # step 1, every launch held
         straight[1] = _train(step_fn, cfg, state, 1)[0]
     per_step = dict(LK.LAUNCHES, **FK.LAUNCHES)
-    check(kc.calls == per_step and per_step["lru_scan"] == 2 * TRAIN_LAYERS
-          // 3 and per_step["flash_attention_backward"] == TRAIN_LAYERS // 3,
-          f"one train step launched {per_step}, checked {kc.calls}")
+    # one forward and one backward a layer: two RG-LRU layers and one
+    # local-attention layer a unit, remat off
+    units = TRAIN_LAYERS // 3
+    want = {"lru_scan": 2 * units, "lru_scan_backward": 2 * units,
+            "flash_attention": units, "flash_attention_backward": units}
+    check(kc.calls == per_step and per_step == want,
+          f"one train step launched {per_step}, checked {kc.calls}, not "
+          f"{want}")
     straight[2] = _train(step_fn, cfg, state, 1, step_ms)[0]
 
     def save(tag, scrutiny_fn):
@@ -2577,6 +2640,10 @@ def phase_training(root: str):
           f"with the report alive {save_held / 2 ** 30:.2f} GiB: the save "
           f"reads the report's words, no byte mask is cached); phase "
           f"{time.perf_counter() - t_phase:.1f} s")
+    print(f"training: one step's loss and gradients with remat off, "
+          f"\"full\" and \"dots\" (ms, peak GiB, max |Δg| / max |g| "
+          f"against off, bound {REMAT_TOL}): {json.dumps(remat)}; the "
+          f"losses equal")
     print(f"training: launches {json.dumps(launches)}; per train step "
           f"{json.dumps(per_step)}; mask kernels {json.dumps(mask_launches)}"
           f" (the saved leaves are all or none critical)")
@@ -2756,6 +2823,562 @@ def npb_static(bench, state, ad) -> dict:
             "participation_uncritical": {
                 var: [leaf.uncritical, leaf.total]
                 for var, leaf in part.leaves.items()}}
+
+
+# ----------------------------------------------------------------------------
+# phase 11: serving sessions, phi4-mini-3.8b at full width and depth
+# ----------------------------------------------------------------------------
+
+SESS_N, SESS_T = 4, 1024     # sessions of B = 1, prompt tokens
+SESS_PRE_STEPS = 4           # decode steps before the base snapshot
+SESS_CAP = 3                 # the adopter's max_sessions: adopts one, sheds one
+
+
+def _same_state(a, b) -> bool:
+    na, nb = _leaves(a), _leaves(b)
+    return na.keys() == nb.keys() and all(same_bytes(na[k], nb[k])
+                                          for k in na)
+
+
+def _decode_tokens(eng, state, n):
+    toks = []
+    for _ in range(n):
+        state, tok = eng.step(state)
+        toks.append(tok)
+    return torch.stack(toks, dim=1)
+
+
+def phase_sessions(root: str):
+    """Four sessions of phase 6's model (phi4-mini-3.8b, seed 2027, bf16
+    compute and cache, the scrutiny reading the cache in f32) on two host
+    threads, two each, with a ``FileCollective`` and the levels' L2
+    partner: a base snapshot after 4 decode steps (fresh scrutiny), one
+    step, a delta snapshot.  A fresh
+    manager restores them (migration) and each continues 8 tokens bit for
+    bit as the uninterrupted decode.  Then new managers on both hosts take
+    one step more and snapshot with host 0 killed after its L2 replicate:
+    host 1 commits it degraded and, with ``max_sessions=3``, adopts one of
+    host 0's sessions from the partner replica, sheds the other, and
+    continues bit for bit."""
+    from repro_torch import Engine, Level, get_config
+    from repro_torch.checkpoint import read_manifest
+    from repro_torch.models import init_params
+    from repro_torch.serve import SessionManager, migrate
+    from repro_torch.testing.faults import FaultInjector
+
+    t_phase = time.perf_counter()
+    cfg = get_config(SERVE_ARCH)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(2027)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(cfg, init_params(cfg, gen), SERVE_MAX_LEN, device=DEV)
+    prompts = {f"s{i}": torch.randint(0, cfg.vocab, (1, SESS_T),
+                                      generator=gen, device=DEV,
+                                      dtype=torch.int32)
+               for i in range(SESS_N)}
+    by_host = {0: ["s0", "s1"], 1: ["s2", "s3"]}
+    store = os.path.join(root, "store")
+
+    def manager(coll=None, **kw):
+        return SessionManager(eng, [Level(store, keep_n=4, max_chain=8)],
+                              collective=coll, horizon=HORIZON,
+                              rescrutinize_every=2, **kw)
+
+    K.reset_launches()
+    FK.reset_launches()
+    # ---- the sessions path: counts from 0 here, read at the end ----------
+    def serve(p, coll):
+        with manager(coll, save_mode="device") as sm:
+            for sid in by_host[p]:
+                sm.open(sid, {"tokens": prompts[sid]})
+                sm.decode(sid, SESS_PRE_STEPS)
+            live = sum(v.nbytes for s in sm.sessions.values()
+                       for v in _leaves(s).values())
+            _, base_s = synced(lambda: sm.snapshot(0, block=True))
+            stats = sm.last_session_stats["sessions"]
+            for sid in by_host[p]:
+                sm.step(sid)
+            _, delta_s = synced(lambda: sm.snapshot(1, block=True))
+            return {"sessions": dict(sm.sessions), "live": live,
+                    "stats": dict(stats), "base_s": base_s,
+                    "delta_s": delta_s}
+
+    hosts = hosts_ok(*host_threads(2, os.path.join(root, "rdv1"), serve),
+                     "sessions: serve")
+    live = {sid: s for h in hosts for sid, s in h["sessions"].items()}
+    live_bytes = sum(h["live"] for h in hosts)
+    st = [v for h in hosts for v in h["stats"].values()]
+    unc_rate = sum(s["uncritical"] for s in st) / sum(s["total"] for s in st)
+    man0, man1 = read_manifest(store, 0), read_manifest(store, 1)
+    check(not man0.get("chain") and man1.get("chain"),
+          f"sessions: step 0 must be a base, step 1 a delta: chains "
+          f"{man0.get('chain')} {man1.get('chain')}")
+    snap_bytes, delta_bytes = man0["payload_bytes"], man1["payload_bytes"]
+
+    # migration: a fresh manager restores every session and serves a token
+    def migrate_all():
+        sm = manager()
+        step = sm.restore()
+        first = {sid: sm.step(sid) for sid in sorted(sm.sessions)}
+        return sm, step, first
+
+    (sm, step, first), downtime_s = synced(migrate_all)
+    check(step == 1 and sorted(sm.sessions) == sorted(live),
+          f"sessions: migration restored step {step}, {sorted(sm.sessions)}")
+    for sid, state in live.items():
+        want = _decode_tokens(eng, state, CONTINUE)
+        got = torch.cat([first[sid][:, None],
+                         sm.decode(sid, CONTINUE - 1)], dim=1)
+        check(torch.equal(got, want), f"sessions: {sid} after migration "
+              f"decodes {got.tolist()}, not {want.tolist()}")
+    migrate_stats = dict(sm.ckpt.last_restore_stats)
+    sm.close()
+
+    # a host killed mid-decode: degraded commit, adoption, load shedding
+    after = {sid: eng.step(s)[0] for sid, s in live.items()}
+
+    def degraded(p, coll):
+        inj = (FaultInjector().kill_at("after_replicate", match="q1")
+               if p == 0 else None)
+        sm = manager(coll, save_mode="device",
+                     barrier_timeout_s=DEGRADED_TIMEOUT_S,
+                     fault_injector=inj,
+                     max_sessions=SESS_CAP if p == 1 else None)
+        sm.sessions.update({sid: live[sid] for sid in by_host[p]})
+        for sid in by_host[p]:
+            sm.step(sid)
+        sm.snapshot(2, block=True)          # host 0 dies inside this one
+        rep, adopt_s = synced(lambda: migrate.adopt_sessions(sm,
+                                                             dead_host=0))
+        toks = {sid: sm.decode(sid, CONTINUE) for sid in sm.sessions}
+        sm.close()
+        return rep, adopt_s, toks
+
+    results, errors = host_threads(2, os.path.join(root, "rdv2"), degraded)
+    check(errors[0] is not None and errors[1] is None,
+          f"sessions: host 0 must die and host 1 survive: {errors}")
+    rep, adopt_s, toks = results[1]
+    # the dead host's traceback holds its frame, its manager and through
+    # it the engine's 23 GB of parameters, in a cycle only the collector
+    # frees: the data-parallel ranks need that memory
+    del results, errors
+    gc.collect()
+    man2 = read_manifest(store, 2)
+    check([int(h) for h in man2["degraded"]["missing"]] == [0],
+          f"sessions: step 2 degraded {man2.get('degraded')}")
+    check(rep.step == 2 and rep.adopted == ["s0"] and rep.shed == ["s1"]
+          and not rep.missing and rep.partner_served,
+          f"sessions: adoption {rep}")
+    for sid in ("s0", "s2", "s3"):
+        want = _decode_tokens(eng, after[sid], CONTINUE)
+        check(torch.equal(toks[sid], want), f"sessions: {sid} after "
+              f"adoption decodes {toks[sid].tolist()}, not {want.tolist()}")
+    launches = {**{k: K.LAUNCHES[k] for k in CKPT_KERNELS},
+                "flash_attention": FK.LAUNCHES["flash_attention"]}
+    # ---- end of the sessions path ----------------------------------------
+    check(all(launches[k] > 0 for k in ("threshold_bitpack", "pack",
+                                        "mask_scatter", "flash_attention")),
+          f"a kernel of the sessions path was never launched: {launches}")
+    peak = torch.cuda.max_memory_allocated()
+    del eng, live, after, sm
+    shutil.rmtree(root)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"sessions: {SESS_N} sessions of {SESS_T} tokens, max_len "
+          f"{SERVE_MAX_LEN}, on 2 host threads: live {live_bytes} B, "
+          f"snapshot {snap_bytes} B ({snap_bytes / live_bytes:.4%}), KV "
+          f"uncritical {unc_rate:.6f}, delta {delta_bytes} B a step")
+    print(f"sessions: snapshot_s (base, per host) "
+          f"{json.dumps([round(h['base_s'], 4) for h in hosts])} "
+          f"delta_snapshot_s {json.dumps([round(h['delta_s'], 4) for h in hosts])}"
+          f" migration_downtime_s={downtime_s:.4f} (a fresh manager restores "
+          f"{SESS_N} sessions and serves a token each; h2d "
+          f"{migrate_stats['h2d_bytes']} B); {CONTINUE} tokens a session "
+          f"bit-identical to the uninterrupted decode")
+    print(f"sessions: host 0 killed after its replicate at step 2: "
+          f"degraded commit, host 1 adopted {rep.adopted} shed {rep.shed} "
+          f"partner_served={rep.partner_served} (store bytes "
+          f"{rep.read_stats['bytes_read_store']}, L2 "
+          f"{rep.read_stats['bytes_read_l2']}) in {adopt_s:.4f} s; "
+          f"continuations bit-identical; peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB; launches {json.dumps(launches)}; "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ----------------------------------------------------------------------------
+# phase 12: the compressed data-parallel step, two processes on the card
+# ----------------------------------------------------------------------------
+
+DP_LAYERS = 3                # one rrl unit of recurrentgemma-2b's 26 layers
+DP_B, DP_FRAC = 2, 0.01      # rows a rank, top-k fraction
+# every step's reduced gradient (the replicas' mean before clipping) and
+# both ranks' error buffers against a one-process run of the step from
+# both ranks' rows, the reference's functions composed: the same kernels
+# on the same inputs (K6 and K7 use no atomics), so bit for bit is
+# expected; the bound, times each leaf's largest magnitude, allows another
+# summation order
+DP_TOL = 1e-6
+
+_DP_PROG = r"""
+import dataclasses, json, os, time
+import torch
+import torch.distributed as dist
+rank, W = int(os.environ["RANK"]), 2
+dist.init_process_group("gloo", init_method=os.environ["INIT"], rank=rank,
+                        world_size=W)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from repro_torch import _tree, get_config
+from repro_torch.kernels.flash_attention import kernel as FK
+from repro_torch.kernels.lru_scan import kernel as LK
+from repro_torch.models import count_params, init_params
+from repro_torch.train import optim, step as S
+dev, T = "cuda", 1024
+B, FRAC, TOL = int(os.environ["B"]), float(os.environ["FRAC"]), float(
+    os.environ["TOL"])
+cfg = dataclasses.replace(get_config("recurrentgemma-2b"),
+                          n_layers=int(os.environ["LAYERS"]), remat=False)
+mesh = {"data": W, "model": 1}
+oc = optim.OptConfig(kind="adamw", lr=3e-4, warmup=100, clip_norm=1.0,
+                     decay_steps=4)
+params = init_params(cfg, torch.Generator(device=dev).manual_seed(2028))
+n = count_params(params)
+
+def batch(i):
+    g = torch.Generator(device=dev).manual_seed(3000 + i)
+    t = torch.randint(0, cfg.vocab, (W * B, T + 1), generator=g, device=dev,
+                      dtype=torch.int32)
+    return {"tokens": t[:, :-1].contiguous(), "labels": t[:, 1:].contiguous()}
+
+def leaves(tree):
+    return [t for _, t in _tree.flatten_with_names(tree)[0]]
+
+def digest(tree):
+    out = []
+    for p in leaves(tree):
+        bits = p.detach().reshape(-1).view(torch.int32)
+        acc = torch.zeros((), dtype=torch.int64, device=dev)
+        for a in range(0, bits.numel(), 1 << 26):
+            c = bits[a:a + (1 << 26)].long()
+            w = torch.arange(a, a + c.numel(), device=dev) * 2654435761 \
+                % 2147483647 + 1
+            acc += (c * w).sum()
+        out.append(acc)
+    return torch.stack(out)
+
+opt, errors = optim.init_opt(oc, params), S.init_errors(params)
+# rank 0 follows both ranks' error buffers in one process
+ref_err = [S.init_errors(params) for _ in range(W)] if rank == 0 else None
+
+def counts():
+    return dict(FK.LAUNCHES, **LK.LAUNCHES)
+
+def reference(b, quantize):
+    # the step's reduced gradient, the mean before clipping, from both
+    # ranks' rows in one process: the loss and gradients of each rank's
+    # rows, topk_ef_compress with its error buffer (advanced here), then
+    # the int8 values summed in int32 with the largest scale, or the
+    # dense mean
+    sums, scales = None, None
+    for r in range(W):
+        _, g = S.loss_and_grads(cfg, params, S.local_batch(mesh, b, r))
+        sparse, ref_err[r] = S.topk_ef_compress(g, ref_err[r], FRAC)
+        del g
+        if quantize:
+            q = [S.quantize_int8(x) for x in leaves(sparse)]
+            t = [x.to(torch.int32) for x, _ in q]
+            s = torch.stack([sc for _, sc in q])
+            del q
+            scales = s if scales is None else torch.maximum(scales, s)
+        else:
+            t = leaves(sparse)
+        del sparse
+        sums = t if sums is None else [a + c for a, c in zip(sums, t)]
+        del t
+    if quantize:
+        return [S.dequantize_int8(t, scales[i], W, torch.float32)
+                for i, t in enumerate(sums)]
+    return [t / W for t in sums]
+
+def rel_err(got, want):
+    return max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+               for a, b in zip(got, want))
+
+real_clip, seen = S.clip_by_global_norm, {}
+
+def clip(grads, norm):
+    # the step's reduced gradient (before clipping) against the reference
+    if "want" in seen:
+        got = leaves(grads)
+        seen["grad_rel"].append(rel_err(got, seen["want"]))
+        seen["bitwise"].append(all(torch.equal(a, b)
+                                   for a, b in zip(got, seen.pop("want"))))
+    return real_clip(grads, norm)
+
+S.clip_by_global_norm = clip
+seen.update(grad_rel=[], err_rel=[], bitwise=[])
+ref_launches = {}
+torch.cuda.reset_peak_memory_stats()
+FK.reset_launches()
+LK.reset_launches()
+steps = [(q, S.make_compressed_dp_step(cfg, oc, mesh, frac=FRAC, quantize=q))
+         for q in (True, True, True, False)]
+ms, losses, same = [], [], []
+for i, (quantize, fn) in enumerate(steps):
+    b = batch(i)
+    if rank == 0:
+        c0 = counts()
+        seen["want"] = reference(b, quantize)
+        for k, v in counts().items():
+            ref_launches[k] = ref_launches.get(k, 0) + v - c0.get(k, 0)
+        torch.cuda.empty_cache()
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt, errors, loss = fn(params, opt, errors, b)
+    torch.cuda.synchronize()
+    ms.append((time.perf_counter() - t0) * 1e3)
+    losses.append(float(loss))
+    d = digest(params)
+    hi, lo = d.clone(), d.clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    same.append(bool(torch.equal(hi, lo)))
+    # each rank's error buffer against rank 0's one-process run of it;
+    # rank 1's comes over a leaf at a time
+    worst, bit = 0.0, True
+    wants = [leaves(e) for e in ref_err] if rank == 0 else None
+    for j, e in enumerate(leaves(errors)):
+        got = e if rank == 1 else torch.empty_like(e)
+        dist.broadcast(got, src=1)
+        if rank == 0:
+            for x, want in ((e, wants[0][j]), (got, wants[1][j])):
+                worst = max(worst, rel_err([x], [want]))
+                bit = bit and torch.equal(x, want)
+        del got
+    if rank == 0:
+        seen["err_rel"].append(worst)
+        seen["bitwise"][-1] = seen["bitwise"][-1] and bit
+        del wants
+launches = {k: v - ref_launches.get(k, 0) for k, v in counts().items()}
+nonzero = sum(int((e != 0).sum()) for e in leaves(errors))
+L = len(leaves(params))
+out = {"rank": rank, "params": n, "leaves": L, "step_ms": ms,
+       "losses": losses, "same_params": same,
+       "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+       "error_nonzero": nonzero, "launches": launches,
+       "exchange_bytes": {"int8": 4 * n + 4 * L + 4, "dense_f32": 4 * n + 4}}
+if rank == 0:
+    out["vs_one_process"] = {"grad_rel": seen["grad_rel"],
+                             "err_rel": seen["err_rel"],
+                             "bitwise": seen["bitwise"]}
+print("DP_OK " + json.dumps(out), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _pair(prog, what, env, timeout=600):
+    """Run ``prog`` as ranks 0 and 1 of a gloo group → each rank's JSON
+    result line (after ``tag``)."""
+    init = f"tcp://localhost:{_free_port()}"
+    procs = [_spawn(prog, [], dict(env, RANK=str(r), INIT=init))
+             for r in range(2)]
+    outs = _finish(procs, what, timeout=timeout)
+    tag = what.split(":")[0] + " "
+    return [json.loads(next(x for x in o.splitlines()
+                            if x.startswith(tag))[len(tag):]) for o in outs]
+
+
+def phase_data_parallel() -> dict:
+    """recurrentgemma-2b at its published widths, depth 26 → 3, as two
+    processes sharing the card in a gloo group: three steps with the int8
+    exchange and one with the dense mean, each from the 4-row global
+    batch, 2 rows a rank."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    # two ranks of about 25 GiB each share the card: segments that grow
+    # keep their freed blocks from fragmenting it
+    res = _pair(_DP_PROG, "DP_OK: data parallel",
+                {"B": str(DP_B), "FRAC": str(DP_FRAC), "TOL": str(DP_TOL),
+                 "LAYERS": str(DP_LAYERS),
+                 "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    r0 = res[0]
+    for r in res:
+        check(all(r["same_params"]), f"data parallel: rank {r['rank']}'s "
+              f"parameters differ from the other's after steps "
+              f"{r['same_params']}")
+        check(r["error_nonzero"] > 0, f"data parallel: rank {r['rank']}'s "
+              "error buffers are all zero")
+    check(res[0]["losses"] == res[1]["losses"],
+          f"data parallel: the ranks' mean losses differ {res}")
+    vs = r0["vs_one_process"]
+    check(len(vs["grad_rel"]) == len(vs["err_rel"]) == len(r0["step_ms"])
+          and max(vs["grad_rel"] + vs["err_rel"]) <= DP_TOL,
+          f"data parallel: the reduced gradients and error buffers against "
+          f"the one-process run of each step: {vs} > {DP_TOL}")
+    launches = {k: res[0]["launches"][k] + res[1]["launches"][k]
+                for k in res[0]["launches"]}
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel of the data-parallel path was never launched: "
+          f"{launches}")
+    ex = r0["exchange_bytes"]
+    print(f"data parallel: recurrentgemma-2b {DP_LAYERS} layers, "
+          f"{r0['params']} parameters ({r0['leaves']} leaves), 2 ranks "
+          f"in a gloo group on one card, {DP_B} rows x 1024 a rank, frac "
+          f"{DP_FRAC}: step_ms (3 int8, 1 dense) {json.dumps([[round(x, 1) for x in r['step_ms']] for r in res])}"
+          f"; losses {json.dumps(r0['losses'])}; parameters bit-identical "
+          f"on both ranks after every step (digest); error buffers "
+          f"non-zero {[r['error_nonzero'] for r in res]}")
+    print(f"data parallel: every step against a one-process run of it "
+          f"from both ranks' rows (max |Δ| / max |want| a leaf, bound "
+          f"{DP_TOL}): the reduced gradient before clipping "
+          f"{vs['grad_rel']}, both ranks' error buffers {vs['err_rel']}, "
+          f"bitwise {vs['bitwise']}; peak device memory "
+          f"a rank {json.dumps([round(r['peak_gib'], 2) for r in res])} GiB "
+          f"(this process held {held / 2 ** 30:.2f} GiB);"
+          f" exchange a step {ex['int8']} B (int32 sums of int8 values, a "
+          f"scale a leaf, the loss) against a dense f32 all-reduce's "
+          f"{ex['dense_f32']} B; launches {json.dumps(launches)}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ----------------------------------------------------------------------------
+# phase 13: GPipe, two processes on the card
+# ----------------------------------------------------------------------------
+
+PP_LAYERS, PP_M, PP_T = 4, 4, 1024     # 2 stages x 2 blocks, microbatches
+# outputs bit for bit the blocks run one after the other (the same kernels
+# on the same inputs); gradients within PP_TOL of each leaf's largest
+# |gradient| (the microbatches' parameter gradients add up in the order
+# the cotangents arrive)
+PP_TOL = 1e-5
+
+_PP_PROG = r"""
+import dataclasses, json, os, time
+import torch
+import torch.distributed as dist
+rank, S = int(os.environ["RANK"]), 2
+dist.init_process_group("gloo", init_method=os.environ["INIT"], rank=rank,
+                        world_size=S)
+torch.backends.cuda.matmul.allow_tf32 = False
+from repro_torch import _tree, get_config
+from repro_torch.distributed import pipeline
+from repro_torch.kernels.flash_attention import kernel as FK
+from repro_torch.models import init_params
+from repro_torch.models import model
+dev = "cuda"
+L, M, T = (int(os.environ[k]) for k in ("LAYERS", "M", "T"))
+TOL = float(os.environ["TOL"])
+cfg = dataclasses.replace(get_config("phi4-mini-3.8b"), n_layers=L)
+seg = init_params(cfg, torch.Generator(device=dev).manual_seed(2029))[
+    "segments"]["seg0"]["u0"]
+named, treedef = _tree.flatten_with_names(seg)
+per = L // S
+mine = _tree.unflatten(treedef, [
+    t[rank * per:(rank + 1) * per].detach().clone().requires_grad_(True)
+    for _, t in named])
+g = torch.Generator(device=dev).manual_seed(2030)
+x = torch.randn(M, 1, T, cfg.d_model, generator=g, device=dev).to(
+    torch.bfloat16).requires_grad_(True)
+w = torch.randn(M, 1, T, cfg.d_model, generator=g, device=dev)
+kind = model.layer_kinds(cfg)[0]
+pos = torch.arange(T, dtype=torch.int32, device=dev).expand(1, T)
+
+def block_fn(p, v):
+    for layer in model._unstack(p):
+        v = model.apply_block_train(cfg, kind, layer, v, pos)[0]
+    return v
+
+def run(fn):
+    torch.cuda.synchronize()
+    dist.barrier()                  # both stages start the clock together
+    t0 = time.perf_counter()
+    out = fn()
+    (out.float() * w).sum().backward()
+    torch.cuda.synchronize()
+    return out.detach(), time.perf_counter() - t0
+
+# a first pass warms the kernels and the matmuls: untimed, uncounted
+run(lambda: pipeline.gpipe_apply(None, block_fn, mine, x, M))
+for p in _tree.leaves(mine) + [x]:
+    p.grad = None
+FK.reset_launches()
+out, pipe_s = run(lambda: pipeline.gpipe_apply(None, block_fn, mine, x, M))
+launches = dict(FK.LAUNCHES)
+gx = x.grad.clone() if rank == 0 else None
+x.grad = None
+full = _tree.unflatten(treedef, [t.detach().clone().requires_grad_(True)
+                                 for _, t in named])
+ref, seq_s = run(lambda: torch.stack([block_fn(full, x[m])
+                                      for m in range(M)]))
+
+def rel(a, b):
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp(min=1e-30))
+
+g_rel = max(rel(p.grad, f.grad[rank * per:(rank + 1) * per])
+            for p, f in zip(_tree.leaves(mine), _tree.leaves(full)))
+res = {"rank": rank, "out_bitwise": bool(torch.equal(out, ref)),
+       "grad_rel": g_rel, "pipe_s": pipe_s, "seq_s": seq_s,
+       "ticks": M + S - 1, "bubble": pipeline.bubble_fraction(S, M),
+       "launches": launches}
+if rank == 0:
+    res["x_grad_rel"] = rel(gx, x.grad)
+print("PP_OK " + json.dumps(res), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def phase_pipeline() -> dict:
+    """phi4-mini-3.8b's decoder blocks at full width, 2 stages x 2 blocks,
+    M = 4 microbatches of (1, 1024, 3072) bf16, as two processes sharing
+    the card: outputs on both ranks and every stage's gradients and x's
+    against the four blocks run one after the other in one process."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    res = _pair(_PP_PROG, "PP_OK: pipeline",
+                {"LAYERS": str(PP_LAYERS), "M": str(PP_M),
+                 "T": str(PP_T), "TOL": str(PP_TOL)})
+    for r in res:
+        check(r["out_bitwise"], f"pipeline: rank {r['rank']}'s outputs are "
+              "not the sequential run's")
+        check(r["grad_rel"] <= PP_TOL, f"pipeline: stage {r['rank']}'s "
+              f"gradients {r['grad_rel']} > {PP_TOL} of the sequential "
+              "run's")
+    check(res[0]["x_grad_rel"] <= PP_TOL,
+          f"pipeline: x's gradient {res[0]['x_grad_rel']} > {PP_TOL}")
+    launches = {k: res[0]["launches"][k] + res[1]["launches"][k]
+                for k in res[0]["launches"]}
+    check(launches["flash_attention"] == PP_LAYERS * PP_M
+          and launches["flash_attention_backward"] == PP_LAYERS * PP_M,
+          f"pipeline: K6 launches {launches}, not {PP_LAYERS * PP_M} each "
+          "way")
+    print(f"pipeline: phi4-mini-3.8b blocks, 2 stages x "
+          f"{PP_LAYERS // 2} on 2 processes (gloo, one card), M={PP_M} "
+          f"microbatches of (1, {PP_T}, 3072) bf16: ticks "
+          f"{res[0]['ticks']}, bubble fraction {res[0]['bubble']:.4f}; "
+          f"forward + backward wall (after a warm pass) "
+          f"{json.dumps([round(r['pipe_s'], 4) for r in res])}"
+          f" s (the blocks one after the other in one process "
+          f"{json.dumps([round(r['seq_s'], 4) for r in res])} s); outputs "
+          f"bit-identical to the sequential run's on both ranks; gradient "
+          f"max |Δ| / max |g| per stage "
+          f"{json.dumps([r['grad_rel'] for r in res])}, x "
+          f"{res[0]['x_grad_rel']} (bound {PP_TOL}); launches "
+          f"{json.dumps(launches)}; phase {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 # ----------------------------------------------------------------------------
@@ -3191,6 +3814,9 @@ def main() -> None:
         del main_state, fa_in, k5_inputs, fam_k6
         (train_launches, per_step, train_in, train_mask,
          train_coord) = phase_training(os.path.join(tmp, "train"))
+        sess_launches = phase_sessions(os.path.join(tmp, "sessions"))
+    dp_launches = phase_data_parallel()
+    pp_launches = phase_pipeline()
     rows += phase_timing_training(train_launches, per_step, train_in)
     # every kernel's launches summed over the paths it runs on, each path
     # counted from 0 just before it and read just after
@@ -3199,7 +3825,9 @@ def main() -> None:
              "training": dict(train_launches, **train_mask),
              "coordinated": {k: coord_launches.get(k, 0)
                              + train_coord.get(k, 0)
-                             for k in set(coord_launches) | set(train_coord)}}
+                             for k in set(coord_launches) | set(train_coord)},
+             "sessions": sess_launches, "data_parallel": dp_launches,
+             "pipeline": pp_launches}
     for r in rows:
         r["launches"] = sum(p.get(r["name"], 0) for p in paths.values())
     print(f"launches by path: {json.dumps(paths)}; in all "

@@ -1,2 +1,4 @@
-"""Multi-host coordination (``collective``) and the partition rules and
-leading-axis layouts (``sharding``) of the port."""
+"""Multi-host coordination (``collective``), the partition rules and
+leading-axis layouts (``sharding``), GPipe (``pipeline``) and the
+point-to-point ops it stages through host memory (``exchange``) of the
+port."""

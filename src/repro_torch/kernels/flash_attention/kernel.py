@@ -23,6 +23,7 @@ version.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -37,9 +38,11 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 TENSOR_CORE_DTYPES = frozenset({torch.bfloat16})
 
 # Launches since the last reset_launches(): a run reads it to show that
-# its prefill or its training steps went through the kernels.
+# its prefill or its training steps went through the kernels.  Counted
+# under a lock: host threads serving sessions prefill at once.
 LAUNCHES: Dict[str, int] = {"flash_attention": 0,
                              "flash_attention_backward": 0}
+_LAUNCHES_LOCK = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -57,8 +60,14 @@ BUILD_INFO = LIBRARY.info
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCHES_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _count(name: str) -> None:
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
 
 
 def load_library() -> ctypes.CDLL:
@@ -131,7 +140,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         None if o32 is None else o32.data_ptr(), B, Tq, Tk, H, K, D, Dv,
         *_mask_args(scale, causal, window, attn_cap),
         _DTYPE_CODE[q.dtype], stream_of(q)), "flash_attention")
-    LAUNCHES["flash_attention"] += 1
+    _count("flash_attention")
     return (out, lse, o32) if with_lse else out
 
 
@@ -177,5 +186,5 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), dl.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         None if part is None else part.data_ptr(), *tail), what)
-    LAUNCHES["flash_attention_backward"] += 1
+    _count("flash_attention_backward")
     return dq, dk, dv

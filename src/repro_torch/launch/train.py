@@ -31,9 +31,11 @@ restart).
 
 ``--preset smoke`` shrinks the model (``ArchConfig.reduced()``).  The MoE
 archs (``--arch olmoe-1b-7b``, ``deepseek-v3-671b``) train with the aux
-loss in their loss; at full width they wait for the data-parallel step
-(ROADMAP Queue 1 item 10b: olmoe-1b-7b's 6.92 B parameters are 110 GB with
-f32 gradients and AdamW moments, more than one card holds).
+loss in their loss.  At full width olmoe-1b-7b's 6.92 B parameters are
+110 GB with f32 gradients and AdamW moments, more than one card holds;
+the compressed data-parallel step (``train/step.py``) does not shrink
+that, since every replica keeps the parameters, the moments and an f32
+error buffer whole.
 """
 
 from __future__ import annotations

@@ -35,7 +35,7 @@ import torch
 from repro_torch._tensors import alloc_device
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import (apply_mrope, apply_rope, dense_init,
-                                       dtype_of, softcap)
+                                       dot, dtype_of, softcap)
 
 _NEG = -2.3819763e38  # finite big-negative (bf16-safe), as the reference
 _POS_NONE = 2 ** 31 - 1  # int32 max: the position of a slot never attended
@@ -126,9 +126,9 @@ def _project_qkv(cfg, p, x, positions):
     dt = x.dtype
     B, T, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = x @ p["wq"].to(dt)
-    k = x @ p["wk"].to(dt)
-    v = x @ p["wv"].to(dt)
+    q = dot(x, p["wq"].to(dt))
+    k = dot(x, p["wk"].to(dt))
+    v = dot(x, p["wv"].to(dt))
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
@@ -159,7 +159,7 @@ def attention_train(cfg, p, x, positions, *, window=None, causal=True):
     o = _dispatch_attend(q, k, v, window, causal,
                          cfg.resolved_head_dim ** -0.5, cfg.attn_softcap)
     B, T = x.shape[:2]
-    return o.reshape(B, T, -1) @ p["wo"].to(x.dtype)
+    return dot(o.reshape(B, T, -1), p["wo"].to(x.dtype))
 
 
 def init_cache(cfg, batch: int, max_len: int, *, window=None, dtype=None,
@@ -210,7 +210,7 @@ def attention_decode(cfg, p, x, cache, pos, *, window=None):
     k_pos = k_pos[None, :].expand(B, S).to(torch.int32)
     o = _attend_full(q, ck, cv, _mask_bias(positions, k_pos, window, True),
                      cfg.resolved_head_dim ** -0.5, cfg.attn_softcap)
-    out = o.reshape(B, 1, -1) @ p["wo"].to(x.dtype)
+    out = dot(o.reshape(B, 1, -1), p["wo"].to(x.dtype))
     return out, {"k": ck, "v": cv}
 
 
@@ -222,7 +222,7 @@ def mla_latent(cfg, p, x, positions):
     """The latent row of each position: (c_kv (B,T,R), k_pe (B,T,Dr) with
     RoPE applied), in x's dtype: what the cache keeps."""
     m = cfg.mla
-    kv_a = x @ p["wkv_a"].to(x.dtype)
+    kv_a = dot(x, p["wkv_a"].to(x.dtype))
     c_kv, k_pe = kv_a[..., :m.kv_lora_rank], kv_a[..., m.kv_lora_rank:]
     k_pe = apply_rope(k_pe[:, :, None, :], _text_positions(positions),
                       cfg.rope_theta)[:, :, 0, :]
@@ -240,20 +240,21 @@ def mla_train(cfg, p, x, positions, latent=None):
     H = cfg.n_heads
     qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
 
-    q = (x @ p["wq_a"].to(dt)) @ p["wq_b"].to(dt)
+    q = dot(dot(x, p["wq_a"].to(dt)), p["wq_b"].to(dt))
     q = q.reshape(B, T, H, qk_dim)
     q_nope, q_pe = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     c_kv, k_pe = latent if latent is not None else mla_latent(cfg, p, x,
                                                               positions)
-    k_nope = (c_kv @ p["wk_b"].to(dt)).reshape(B, T, H, m.qk_nope_head_dim)
-    v = (c_kv @ p["wv_b"].to(dt)).reshape(B, T, H, m.v_head_dim)
+    k_nope = dot(c_kv, p["wk_b"].to(dt)).reshape(B, T, H,
+                                                 m.qk_nope_head_dim)
+    v = dot(c_kv, p["wv_b"].to(dt)).reshape(B, T, H, m.v_head_dim)
     q_pe = apply_rope(q_pe, _text_positions(positions), cfg.rope_theta)
 
     q_full = torch.cat([q_nope, q_pe], -1)
     k_full = torch.cat([k_nope, k_pe[:, :, None, :].expand(
         B, T, H, m.qk_rope_head_dim)], -1)               # shared rope head
     o = _dispatch_attend(q_full, k_full, v, None, True, qk_dim ** -0.5, None)
-    return o.reshape(B, T, H * m.v_head_dim) @ p["wo"].to(dt)
+    return dot(o.reshape(B, T, H * m.v_head_dim), p["wo"].to(dt))
 
 
 def mla_decode(cfg, p, x, cache, pos):
@@ -267,7 +268,7 @@ def mla_decode(cfg, p, x, cache, pos):
     H = cfg.n_heads
     positions = pos.reshape(1, 1).expand(B, 1).to(torch.int32)
 
-    q = (x @ p["wq_a"].to(dt)) @ p["wq_b"].to(dt)
+    q = dot(dot(x, p["wq_a"].to(dt)), p["wq_b"].to(dt))
     q = q.reshape(B, 1, H, m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_pe = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
@@ -292,5 +293,5 @@ def mla_decode(cfg, p, x, cache, pos):
     o_lat = torch.einsum("bhts,bsr->bthr", prob, c_kv.float())  # (B,1,H,R)
     wv_b = p["wv_b"].to(dt).reshape(m.kv_lora_rank, H, m.v_head_dim)
     o = torch.einsum("bthr,rhd->bthd", o_lat.to(dt), wv_b)
-    out = o.reshape(B, 1, H * m.v_head_dim) @ p["wo"].to(dt)
+    out = dot(o.reshape(B, 1, H * m.v_head_dim), p["wo"].to(dt))
     return out, {"c_kv": c_kv, "k_pe": k_pe}

@@ -1,5 +1,6 @@
 """Shared model layers (port of ``repro.models.layers``): norms,
-projections, embeddings, RoPE/M-RoPE and FFNs.
+projections, embeddings, RoPE/M-RoPE and FFNs, and ``dot``, the product
+with a weight matrix that every layer's projections go through.
 
 Pure functions over nested-dict params.  Initializers draw from an
 explicit ``torch.Generator`` on its device (the reference's ``jax.random``
@@ -12,6 +13,8 @@ Compute dtype and param dtype come from ArchConfig.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -35,6 +38,81 @@ def normal(gen: Optional[torch.Generator], shape: Tuple[int, ...],
         return torch.empty(shape, dtype=torch.float32, device=device)
     return torch.randn(shape, generator=gen, dtype=torch.float32,
                        device=device)
+
+
+# --------------------------------------------------------------------------
+# products with a weight matrix, and remat's "dots" policy
+# --------------------------------------------------------------------------
+
+_KEEPING = threading.local()
+
+
+class KeptProducts:
+    """The outputs of one rematerialized layer's weight products, in call
+    order (``models/model.py``'s remat policy "dots").  The layer's
+    forward records each product's output; when the backward recomputes
+    the layer, each ``dot`` takes its output back instead of multiplying
+    again, so the recompute runs only the rest (norms, K6, K7, the
+    elementwise ops).  Both passes save the same tensors, the product's
+    operands, as non-reentrant checkpointing requires."""
+
+    def __init__(self):
+        self.outs: list = []
+        self.next: Optional[int] = None   # the index to take when replaying
+
+    @contextlib.contextmanager
+    def _active(self, next_index):
+        self.next = next_index
+        _KEEPING.kept = self
+        try:
+            yield
+        finally:
+            _KEEPING.kept = None
+
+    def recording(self):
+        return self._active(None)
+
+    def replaying(self):
+        return self._active(0)
+
+
+class _KeptDot(torch.autograd.Function):
+    """``x @ w`` whose output ``kept`` records, or hands back when it
+    replays; the backward is ``aten.mm``'s (``grad @ w.T`` and ``x.T @
+    grad`` on the rows folded), so the gradients are bit for bit those of
+    ``x @ w``."""
+
+    @staticmethod
+    def forward(ctx, x, w, kept):
+        ctx.save_for_backward(x, w)
+        if kept.next is None:
+            out = x.reshape(-1, x.shape[-1]).mm(w).reshape(
+                *x.shape[:-1], w.shape[-1])
+            kept.outs.append(out.detach())
+            return out
+        out, kept.outs[kept.next] = kept.outs[kept.next], None
+        kept.next += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        g = grad.reshape(-1, grad.shape[-1])
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = g.mm(w.t()).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            gw = x.reshape(-1, x.shape[-1]).t().mm(g)
+        return gx, gw, None
+
+
+def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a weight matrix ``w`` (a product with no batch
+    dimension, as ``jax.checkpoint_policies.dots_with_no_batch_dims_
+    saveable`` names them).  Inside a layer under remat "dots" its output
+    is kept for the backward (``KeptProducts``)."""
+    kept = getattr(_KEEPING, "kept", None)
+    return x @ w if kept is None else _KeptDot.apply(x, w, kept)
 
 
 def dense_init(gen, d_in: int, d_out: int, dtype: torch.dtype, *,
@@ -145,14 +223,14 @@ def init_ffn(cfg, gen, d_ff: Optional[int] = None, *,
 
 def apply_ffn(cfg, p, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
-    h = x @ p["wi"].to(dt)
+    h = dot(x, p["wi"].to(dt))
     if cfg.ffn == "swiglu":
-        h = F.silu(x @ p["wg"].to(dt)) * h
+        h = F.silu(dot(x, p["wg"].to(dt))) * h
     elif cfg.ffn == "geglu":
-        h = F.gelu(x @ p["wg"].to(dt), approximate="tanh") * h
+        h = F.gelu(dot(x, p["wg"].to(dt)), approximate="tanh") * h
     else:
         h = F.gelu(h, approximate="tanh")
-    return h @ p["wo"].to(dt)
+    return dot(h, p["wo"].to(dt))
 
 
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:

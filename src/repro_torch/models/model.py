@@ -14,8 +14,12 @@ Every architecture of ``configs/`` is served: flavours ``g`` (global) and
 (mLSTM) and ``s`` (sLSTM); a dense FFN, MoE (olmoe, deepseek) or none;
 M-RoPE with a patch-embedding prefix (qwen2-vl); and the encoder-decoder
 (whisper: a non-causal encoder over ``frames``, cross attention in every
-decoder block).  Rematerialization (``cfg.remat``) is the reference's XLA
-knob and is not ported: the backward keeps every layer's activations.
+decoder block).  Rematerialization (``cfg.remat``, the reference's per-
+layer ``jax.checkpoint``) wraps each layer of a segment (one unit of its
+stack) in ``torch.utils.checkpoint`` when autograd records the forward
+(``set_remat_policy``: "dots" keeps the outputs of the products with a
+weight matrix, ``layers.dot``; "full" keeps nothing); under ``torch.func``
+transforms and with autograd off it does not run (``_remat_active``).
 
 Batch contracts:
   train:   {"tokens": (B,T) int32, "labels": (B,T) int32, ["mask"],
@@ -33,15 +37,16 @@ from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import _tree
 from repro_torch._tensors import alloc_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec
-from repro_torch.models.layers import (apply_ffn, apply_norm, dtype_of,
-                                       embed_init, init_ffn, init_norm,
-                                       softcap)
+from repro_torch.models.layers import (KeptProducts, apply_ffn, apply_norm,
+                                       dot, dtype_of, embed_init, init_ffn,
+                                       init_norm, softcap)
 
 # --------------------------------------------------------------------------
 # layer planning
@@ -172,7 +177,8 @@ def _cross_kv(cfg, p, enc_out):
     B, S = enc_out.shape[:2]
     hd = cfg.resolved_head_dim
     dt = enc_out.dtype
-    return tuple((enc_out @ p[w].to(dt)).reshape(B, S, cfg.n_kv_heads, hd)
+    return tuple(dot(enc_out, p[w].to(dt)).reshape(B, S, cfg.n_kv_heads,
+                                                   hd)
                  for w in ("wk", "wv"))
 
 
@@ -184,12 +190,12 @@ def _cross_attend(cfg, p, x, enc_out, kv=None):
     dt = x.dtype
     B, T, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ p["wq"].to(dt)).reshape(B, T, cfg.n_heads, hd)
+    q = dot(x, p["wq"].to(dt)).reshape(B, T, cfg.n_heads, hd)
     k, v = kv if kv is not None else _cross_kv(cfg, p, enc_out)
     bias = torch.zeros((B, T, k.shape[1]), dtype=torch.float32,
                        device=x.device)
     o = attn._attend_full(q, k, v, bias, hd ** -0.5, None)
-    return o.reshape(B, T, -1) @ p["wo"].to(dt)
+    return dot(o.reshape(B, T, -1), p["wo"].to(dt))
 
 
 def _mixer_train(cfg, kind, p, x, positions):
@@ -405,16 +411,63 @@ def _encode(cfg, params, batch):
         else None
 
 
+_REMAT_POLICY = "dots"  # dots (keep the products' outputs) | full (nothing)
+
+
+def set_remat_policy(mode: str) -> None:
+    """What a rematerialized layer keeps for its backward: "dots" the
+    outputs of its products with a weight matrix (``layers.dot``: the
+    products with no batch dimension, as
+    ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``),
+    recomputing the rest (K6's and K7's forwards included) and not the
+    products; "full" nothing, recomputing the whole layer."""
+    global _REMAT_POLICY
+    if mode not in ("dots", "full"):
+        raise ValueError(f"unknown remat policy {mode!r}")
+    _REMAT_POLICY = mode
+
+
+def _remat_active(cfg, x, p_l) -> bool:
+    """Remat runs where autograd records the layer's forward: grad mode
+    on and ``x`` or a parameter of the layer requiring grad.  It does not
+    run under ``torch.func`` transforms (the scrutiny's ``vjp``), which
+    refuse the saved-tensor hooks that checkpointing installs, nor with
+    autograd off (prefill, decode, ``make_fx`` traces): there it would
+    change nothing, since remat moves memory, not values."""
+    if not (cfg.remat and torch.is_grad_enabled()) or \
+            torch._C._are_functorch_transforms_active():
+        return False
+    return x.requires_grad or any(t.requires_grad for t in _tree.leaves(p_l))
+
+
 def _run_layers(cfg, params, x, positions, enc_out=None, train=False):
-    """Every decoder block → (x, the MoE aux losses summed in f32)."""
+    """Every decoder block → (x, the MoE aux losses summed in f32).  Each
+    layer of a segment (one unit of its stack) runs under
+    ``torch.utils.checkpoint`` where remat is active (``_remat_active``),
+    as the reference wraps its scan body in ``jax.checkpoint``."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, (unit, _) in enumerate(plan_segments(layer_kinds(cfg))):
-        for p_l in _unstack(params["segments"][f"seg{si}"]):
+        def body(x, aux, p_l, unit=unit):
             for ui, kind in enumerate(unit):
                 x, a = apply_block_train(cfg, kind, p_l[f"u{ui}"], x,
                                          positions, enc_out, train)
                 aux = aux + a
+            return x, aux
+
+        for p_l in _unstack(params["segments"][f"seg{si}"]):
+            if _remat_active(cfg, x, p_l):
+                x, aux = _checkpointed(body, x, aux, p_l)
+            else:
+                x, aux = body(x, aux, p_l)
     return x, aux
+
+
+def _checkpointed(body, *args):
+    kw = {}
+    if _REMAT_POLICY == "dots":
+        kept = KeptProducts()
+        kw["context_fn"] = lambda: (kept.recording(), kept.replaying())
+    return checkpoint(body, *args, use_reentrant=False, **kw)
 
 
 def full_logits(cfg, params, batch):
@@ -508,7 +561,7 @@ def _attention_prefill(cfg, fl, p, h, positions, max_len):
     o = attn._dispatch_attend(q, k, v, window, True,
                               cfg.resolved_head_dim ** -0.5,
                               cfg.attn_softcap)
-    out = o.reshape(B, T, -1) @ p["wo"].to(h.dtype)
+    out = dot(o.reshape(B, T, -1), p["wo"].to(h.dtype))
     S = min(window, max_len) if window else max_len
     if window and T >= S:
         # ring buffer: position t lives in slot t % S

@@ -36,7 +36,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init, dtype_of
+from repro_torch.models.layers import dense_init, dot, dtype_of
 
 CAPACITY_FACTOR = 1.25
 
@@ -106,7 +106,7 @@ def apply_moe(cfg, p, x: torch.Tensor, *,
     S = T * K                                             # slots per row
     dt = x.dtype
 
-    logits = (x @ p["router"].to(dt)).float()             # (B,T,E)
+    logits = dot(x, p["router"].to(dt)).float()              # (B,T,E)
     probs = torch.softmax(logits, dim=-1)
     top_w, top_e = top_k(probs, K)                        # (B,T,K)
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.lru_scan.ops import lru_scan
-from repro_torch.models.layers import dense_init, dtype_of, normal
+from repro_torch.models.layers import dense_init, dot, dtype_of, normal
 
 _CONV_W = 4  # temporal conv width (griffin / xlstm)
 _LRU_C = 8.0
@@ -70,10 +70,10 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _rglru_hidden(cfg, p, x: torch.Tensor) -> torch.Tensor:
     """The RG-LRU's hidden sequence h (B, T, r), f32."""
     dt = x.dtype
-    u = x @ p["w_in"].to(dt)                           # (B,T,r)
+    u = dot(x, p["w_in"].to(dt))                       # (B,T,r)
     u = _causal_conv(u, p["conv"].to(dt))
-    r_gate = torch.sigmoid((u @ p["w_a"].to(dt)).float())
-    i_gate = torch.sigmoid((u @ p["w_x"].to(dt)).float())
+    r_gate = torch.sigmoid(dot(u, p["w_a"].to(dt)).float())
+    i_gate = torch.sigmoid(dot(u, p["w_x"].to(dt)).float())
     log_a = -_LRU_C * F.softplus(p["lambda"].float()) * r_gate
     a2 = torch.exp(2.0 * log_a)
     b = torch.sqrt(torch.clamp(1.0 - a2, min=1e-9)) * (i_gate * u.float())
@@ -82,8 +82,8 @@ def _rglru_hidden(cfg, p, x: torch.Tensor) -> torch.Tensor:
 
 def _rglru_out(p, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
-    gate = F.gelu(x @ p["w_gate"].to(dt), approximate="tanh")
-    return (h.to(dt) * gate) @ p["w_out"].to(dt)
+    gate = F.gelu(dot(x, p["w_gate"].to(dt)), approximate="tanh")
+    return dot(h.to(dt) * gate, p["w_out"].to(dt))
 
 
 def rglru_train(cfg, p, x: torch.Tensor) -> torch.Tensor:
@@ -99,7 +99,7 @@ def rglru_prefill(cfg, p, x: torch.Tensor):
     T rows there and its next decode step fails)."""
     dt = dtype_of(cfg.dtype)
     h = _rglru_hidden(cfg, p, x)
-    u = x @ p["w_in"].to(x.dtype)
+    u = dot(x, p["w_in"].to(x.dtype))
     conv = u[:, -(_CONV_W - 1):]
     conv = F.pad(conv, (0, 0, _CONV_W - 1 - conv.shape[1], 0))
     state = {"h": h[:, -1].float(), "conv": conv.to(dt)}
@@ -119,18 +119,18 @@ def rglru_init_state(cfg, batch: int, *, lead: Tuple[int, ...] = (),
 def rglru_decode(cfg, p, x: torch.Tensor, state) -> Tuple[torch.Tensor, Any]:
     """x: (B, 1, d)."""
     dt = x.dtype
-    u = (x @ p["w_in"].to(dt))[:, 0]                   # (B,r)
+    u = dot(x, p["w_in"].to(dt))[:, 0]                 # (B,r)
     hist = torch.cat([state["conv"], u[:, None]], dim=1)   # (B,W,r)
     u_c = torch.einsum("bwr,wr->br", hist, p["conv"].to(dt))
-    r_gate = torch.sigmoid((u_c @ p["w_a"].to(dt)).float())
-    i_gate = torch.sigmoid((u_c @ p["w_x"].to(dt)).float())
+    r_gate = torch.sigmoid(dot(u_c, p["w_a"].to(dt)).float())
+    i_gate = torch.sigmoid(dot(u_c, p["w_x"].to(dt)).float())
     log_a = -_LRU_C * F.softplus(p["lambda"].float()) * r_gate
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-9)) * (
         i_gate * u_c.float())
     h = a * state["h"] + b
-    gate = F.gelu(x[:, 0] @ p["w_gate"].to(dt), approximate="tanh")
-    out = (h.to(dt) * gate) @ p["w_out"].to(dt)
+    gate = F.gelu(dot(x[:, 0], p["w_gate"].to(dt)), approximate="tanh")
+    out = dot(h.to(dt) * gate, p["w_out"].to(dt))
     return out[:, None], {"h": h, "conv": hist[:, 1:]}
 
 
@@ -164,11 +164,11 @@ def _mlstm_qkvif(cfg, p, x):
     dt = x.dtype
     B, T, _ = x.shape
     H, hd = _heads(cfg)
-    q = (x @ p["wq"].to(dt)).reshape(B, T, H, hd).float()
-    k = (x @ p["wk"].to(dt)).reshape(B, T, H, hd).float()
-    v = (x @ p["wv"].to(dt)).reshape(B, T, H, hd).float()
-    logi = (x @ p["wi"].to(dt)).float()                  # (B,T,H)
-    logf = F.logsigmoid((x @ p["wf"].to(dt)).float())
+    q = dot(x, p["wq"].to(dt)).reshape(B, T, H, hd).float()
+    k = dot(x, p["wk"].to(dt)).reshape(B, T, H, hd).float()
+    v = dot(x, p["wv"].to(dt)).reshape(B, T, H, hd).float()
+    logi = dot(x, p["wi"].to(dt)).float()                # (B,T,H)
+    logf = F.logsigmoid(dot(x, p["wf"].to(dt)).float())
     k = k / float(np.sqrt(np.float32(hd)))
     return q, k, v, logi, logf
 
@@ -209,8 +209,8 @@ def _mlstm_run(cfg, p, x):
                                        logi[:, t], logf[:, t]))
         hs.append(h)
     h = torch.stack(hs, dim=1).reshape(B, T, H * hd).to(x.dtype)
-    z = F.silu(x @ p["wz"].to(x.dtype))
-    out = (h * z) @ p["wo"].to(x.dtype)
+    z = F.silu(dot(x, p["wz"].to(x.dtype)))
+    out = dot(h * z, p["wo"].to(x.dtype))
     return out, {"C": carry[0], "n": carry[1], "m": carry[2]}
 
 
@@ -229,8 +229,8 @@ def mlstm_decode(cfg, p, x, state):
                                    logi[:, 0], logf[:, 0]))
     B = x.shape[0]
     h = h.reshape(B, 1, -1).to(x.dtype)
-    z = F.silu(x @ p["wz"].to(x.dtype))
-    out = (h * z) @ p["wo"].to(x.dtype)
+    z = F.silu(dot(x, p["wz"].to(x.dtype)))
+    out = dot(h * z, p["wo"].to(x.dtype))
     return out, {"C": carry[0], "n": carry[1], "m": carry[2]}
 
 
@@ -280,7 +280,7 @@ def _slstm_inputs(cfg, p, x):
     H, hd = _heads(cfg)
 
     def proj(name):
-        return (x @ p[name].to(dt)).reshape(B, T, H, hd).float()
+        return dot(x, p[name].to(dt)).reshape(B, T, H, hd).float()
 
     return proj("wz"), proj("wi"), proj("wf"), proj("wo")
 
@@ -312,7 +312,7 @@ def _slstm_run(cfg, p, x):
                                (xz[:, t], xi[:, t], xf[:, t], xo[:, t]))
         hs.append(h)
     h = torch.stack(hs, dim=1).reshape(B, T, H * hd).to(x.dtype)
-    out = h @ p["wo"].to(x.dtype)
+    out = dot(h, p["wo"].to(x.dtype))
     return out, {"c": carry[0], "n": carry[1], "m": carry[2], "h": carry[3]}
 
 
@@ -330,5 +330,5 @@ def slstm_decode(cfg, p, x, state):
     carry, h = _slstm_step(_slstm_p32(p), carry,
                            (xz[:, 0], xi[:, 0], xf[:, 0], xo[:, 0]))
     B = x.shape[0]
-    out = h.reshape(B, 1, -1).to(x.dtype) @ p["wo"].to(x.dtype)
+    out = dot(h.reshape(B, 1, -1).to(x.dtype), p["wo"].to(x.dtype))
     return out, {"c": carry[0], "n": carry[1], "m": carry[2], "h": carry[3]}
