@@ -38,7 +38,12 @@ phi4-mini-3.8b sessions on two host threads: scrutinized base and delta
 snapshots, migration to a fresh manager, a host killed mid-snapshot and
 its sessions adopted up to capacity); the compressed data-parallel step
 (recurrentgemma-2b, 3 layers) and GPipe (phi4-mini's blocks, 2 stages),
-each as two processes sharing the card in a gloo group.  It checks the
+each as two processes sharing the card in a gloo group; and the launch
+tooling (the nvcc build cache cold, warm and off; the dry run's FLOP count
+over fake tensors equal to the real step's for phi4-mini's prefill and
+recurrentgemma-2b's train step, each timed against ``model_flops`` and the
+roofline's bound; olmoe's balanced routing against its real routing; a
+production cell's dry run).  It checks the
 hardware-independent byte counts of the reference bench state and times
 every kernel.  Any failed check raises and ends the run with a non-zero
 exit; the second-to-last line is the kernels JSON, the last the device
@@ -3382,6 +3387,178 @@ def phase_pipeline() -> dict:
 
 
 # ----------------------------------------------------------------------------
+# phase 14: the launch tooling (build cache, dry run against the real run)
+# ----------------------------------------------------------------------------
+
+_CACHE_PROG = r"""
+import json
+from repro_torch.kernels.mask_pack import kernel as K
+K.load_library()
+print("cache " + json.dumps({k: K.LIBRARY.info[k] for k in
+                             ("so", "built", "seconds")}))
+"""
+# the cells of phases 6 and 7, as ShapeCells of their own
+DRY_CELLS = (("phi4-mini-3.8b", {}, "prefill", SERVE_B, SERVE_T, 2027),
+             ("recurrentgemma-2b", {"n_layers": TRAIN_LAYERS, "remat": False},
+              "train", TRAIN_B, TRAIN_T, 2028))
+DRY_REPS = 3
+
+
+def _cache_run(env, what):
+    out = _finish([_spawn(_CACHE_PROG, [], env)], what, timeout=300)[0]
+    line = next(x for x in out.splitlines() if x.startswith("cache "))
+    return json.loads(line[len("cache "):])
+
+
+def phase_cache(root: str) -> None:
+    """(a) mask_pack.cu cold into a fresh ``REPRO_COMPILE_CACHE``, warm from
+    it, and with the cache off, each in a process of its own."""
+    fresh = os.path.join(root, "cache")
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        cold = pool.submit(_cache_run, {"REPRO_COMPILE_CACHE": fresh},
+                           "cache: cold")
+        off = pool.submit(_cache_run, {"REPRO_COMPILE_CACHE": "0"},
+                          "cache: off")
+        cold, off = cold.result(), off.result()
+    warm = _cache_run({"REPRO_COMPILE_CACHE": fresh}, "cache: warm")
+    check(cold["built"] and os.path.dirname(cold["so"]) == fresh,
+          f"cache: cold load {cold}")
+    check(not warm["built"] and warm["so"] == cold["so"],
+          f"cache: warm load {warm}")
+    check(off["built"] and os.path.dirname(off["so"]) != fresh,
+          f"cache: off {off}")
+    print(f"cache: mask_pack.cu cold build {cold['seconds']:.3f} s, warm "
+          f"load {warm['seconds'] * 1e3:.3f} ms, REPRO_COMPILE_CACHE=0 "
+          f"built again in {off['seconds']:.3f} s")
+
+
+def _accounted(fn):
+    from repro_torch.launch.graph_analysis import Accountant
+    with Accountant() as acct:
+        fn()
+    torch.cuda.synchronize()
+    return acct.result()
+
+
+def _dry_real(cfg, kind, B, T, seed):
+    """The real step of a dense cell → (thunk, what to free)."""
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.specs import optimizer_kind
+    from repro_torch.models import init_params, prefill
+    from repro_torch.train.optim import OptConfig
+    from repro_torch.train.step import make_train_step
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    if kind == "prefill":
+        params = init_params(cfg, gen)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (B, T), generator=gen,
+                                         device=DEV, dtype=torch.int32)}
+
+        def run():
+            with torch.no_grad():
+                prefill(cfg, params, batch, T)
+        return run, params
+    oc = OptConfig(kind=optimizer_kind(cfg))
+    state = launch.build_state(cfg, oc, B, T, seed=seed, device=DEV)
+    batch = {k: torch.randint(0, cfg.vocab, (B, T), generator=gen,
+                              device=DEV, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    step = make_train_step(cfg, oc)
+    return (lambda: step(state["params"], state["opt"], batch)), state
+
+
+def phase_launch_tooling(root: str) -> dict:
+    """Phase 14 → launches.  (a) the build cache; (b) the dry run's
+    accounting over fake tensors on the card against the same accountant
+    over the real step, for phases 6 and 7's cells: FLOPs equal exactly;
+    the real step timed without the accountant against ``model_flops`` and
+    the roofline's bound; (c) olmoe at phase 9's shape, the balanced
+    routing's count against the real routing's; (d) a production cell's
+    dry run end to end."""
+    from repro_torch import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import PEAK_FLOPS
+    from repro_torch.launch.roofline import Roofline, model_flops
+    from repro_torch.launch.specs import ShapeCell
+
+    t_phase = time.perf_counter()
+    phase_cache(root)
+    K.reset_launches()
+    FK.reset_launches()
+    LK.reset_launches()
+    # ---- the launch-tooling path: counts from 0 here, read at the end -----
+    for arch, changes, kind, B, T, seed in DRY_CELLS:
+        cfg = dataclasses.replace(get_config(arch), **changes)
+        cell = ShapeCell(f"{arch}:{kind}", kind, T, B)
+        fake = dryrun.fake_account(cfg, cell, device=DEV)
+        torch.cuda.empty_cache()
+        run, held = _dry_real(cfg, kind, B, T, seed)
+        real = _accounted(run)
+        check(real["flops"] == fake["accounting"]["flops"]
+              and real["flops_by_op"] == fake["accounting"]["flops_by_op"],
+              f"dry run: {arch} {kind} FLOPs fake "
+              f"{fake['accounting']['flops_by_op']} != real "
+              f"{real['flops_by_op']}")
+        ts = []
+        for _ in range(DRY_REPS + 1):
+            ts.append(synced(run)[1])
+        t = float(np.median(ts[1:]))
+        mf = model_flops(cfg, cell)
+        rl = Roofline(arch=arch, shape=kind, mesh="1 card", chips=1,
+                      hlo_flops=float(real["flops"]),
+                      hlo_bytes=float(real["hbm_bytes"]), coll_bytes={},
+                      model_flops=mf)
+        bound = max(rl.t_compute, rl.t_memory)
+        print(f"dry run: {arch} {kind} B={B} T={T} ({cfg.n_layers} layers): "
+              f"aten FLOPs {real['flops']} fake == real "
+              f"({json.dumps(real['flops_by_op'])}), fake run "
+              f"{fake['seconds']:.2f} s; bytes fake "
+              f"{fake['accounting']['hbm_bytes']} real {real['hbm_bytes']}; "
+              f"model_flops {mf:.4e}; useful {rl.useful_fraction:.4f}; "
+              f"bound {bound * 1e3:.3f} ms ({rl.dominant}); measured "
+              f"{t * 1e3:.3f} ms (median of {DRY_REPS}); measured fraction "
+              f"model_flops/(t*PEAK) {mf / (t * PEAK_FLOPS):.4f}")
+        del run, held
+        torch.cuda.empty_cache()
+
+    # (c) the balanced MoE estimate against the real routing's count
+    arch = FAMILIES[0][0]
+    cfg = get_config(arch)
+    cell = ShapeCell(f"{arch}:prefill", "prefill", FAM_T, FAM_B)
+    fake = dryrun.fake_account(cfg, cell, device=DEV)
+    run, held = _dry_real(cfg, "prefill", FAM_B, FAM_T, 2029)
+    real = _accounted(run)
+    ratio = fake["accounting"]["flops"] / real["flops"]
+    print(f"dry run: {arch} prefill B={FAM_B} T={FAM_T}: balanced routing "
+          f"{fake['accounting']['flops']} FLOPs against the real routing's "
+          f"{real['flops']} (ratio {ratio:.6f}); {fake['moe_load']}")
+    check(real["flops"] > 0 and fake["accounting"]["flops"] > 0,
+          f"dry run: {arch} counted no FLOPs")
+    del run, held
+    torch.cuda.empty_cache()
+    launches = dict(K.LAUNCHES, **FK.LAUNCHES, **LK.LAUNCHES)
+    # ---- end of the launch-tooling path ----------------------------------
+    ran = ("flash_attention", "flash_attention_backward", "lru_scan",
+           "lru_scan_backward")
+    check(all(launches[k] > 0 for k in ran),
+          f"dry run: the real steps launched {launches}")
+
+    # (d) a production cell end to end
+    res = dryrun.lower_cell("xlstm-125m", "train_4k", verbose=False)
+    check(res["status"] == "ok" and res["flops"] > 0,
+          f"dry run: xlstm-125m train_4k {res}")
+    print(f"dry run: xlstm-125m train_4k pod16x16: {res['trace_s']} s, "
+          f"{res['n_nodes']} ops, FLOPs {res['flops']:.4e}, bytes "
+          f"{res['bytes']:.4e}, dominant {res['dominant']}, t_compute "
+          f"{res['t_compute_ms']:.3f} ms, t_memory {res['t_memory_ms']:.3f} "
+          f"ms, t_collective {res['t_collective_ms']:.3f} ms")
+    print(f"dry run: launches {json.dumps(launches)}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ----------------------------------------------------------------------------
 # phase 5: every kernel timed at the main path's shapes
 # ----------------------------------------------------------------------------
 
@@ -3817,6 +3994,8 @@ def main() -> None:
         sess_launches = phase_sessions(os.path.join(tmp, "sessions"))
     dp_launches = phase_data_parallel()
     pp_launches = phase_pipeline()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        tool_launches = phase_launch_tooling(tmp)
     rows += phase_timing_training(train_launches, per_step, train_in)
     # every kernel's launches summed over the paths it runs on, each path
     # counted from 0 just before it and read just after
@@ -3827,7 +4006,7 @@ def main() -> None:
                              + train_coord.get(k, 0)
                              for k in set(coord_launches) | set(train_coord)},
              "sessions": sess_launches, "data_parallel": dp_launches,
-             "pipeline": pp_launches}
+             "pipeline": pp_launches, "launch_tooling": tool_launches}
     for r in rows:
         r["launches"] = sum(p.get(r["name"], 0) for p in paths.values())
     print(f"launches by path: {json.dumps(paths)}; in all "

@@ -2,22 +2,30 @@
 
 Each kernel module names one source under ``csrc/`` and the C functions it
 exports.  At first use the source is compiled with ``nvcc`` for
-``sm_90a`` into ``build/repro_torch/<stem>-<hash>.so`` at the root of the
-checkout (the hash covers the source and the flags, so an edited source
-rebuilds), then loaded with ``ctypes`` and every exported function gets its
-``argtypes`` and an ``int`` return (``cudaGetLastError()``).  Nothing is
+``sm_90a`` into ``<build dir>/<stem>-<hash>.so`` (the hash covers the
+source and the flags, so an edited source rebuilds), then loaded with
+``ctypes`` and every exported function gets its ``argtypes`` and an
+``int`` return (``cudaGetLastError()``).  Nothing is
 built or imported at module import, so the CPU tests import the kernel
 modules on a machine without ``nvcc`` or a card; a missing compiler or a
 failed build raises.
+
+The build directory is ``build/repro_torch/`` at the root of the checkout
+unless ``$REPRO_COMPILE_CACHE`` or :func:`set_build_dir` says otherwise
+(``launch/compile_cache.py``): another directory, or none, in which case
+each process builds into a temporary directory of its own, removed at its
+exit.  Every :meth:`CudaLibrary.load` reads it.
 """
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -32,6 +40,35 @@ BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 # the build log (``CudaLibrary.info["log"]``)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+_UNSET = object()
+_build_dir = _UNSET              # a Path, None (per-process), or unset
+_tmp_dir: Optional[Path] = None
+
+
+def set_build_dir(path) -> None:
+    """Build into ``path``; ``None``: a per-process temporary directory."""
+    global _build_dir
+    _build_dir = None if path is None else Path(path)
+
+
+def build_dir() -> Path:
+    """The directory :meth:`CudaLibrary.load` builds into and loads from:
+    the one :func:`set_build_dir` named, else ``$REPRO_COMPILE_CACHE``'s
+    (``launch/compile_cache.default_cache_dir``; unset: ``BUILD_DIR``)."""
+    global _tmp_dir
+    d = _build_dir
+    if d is _UNSET:
+        from repro_torch.launch.compile_cache import default_cache_dir
+        env = default_cache_dir()
+        d = None if env is None else Path(env)
+    if d is not None:
+        return d
+    if _tmp_dir is None:
+        _tmp_dir = Path(tempfile.mkdtemp(prefix="repro_torch_build_"))
+        atexit.register(shutil.rmtree, str(_tmp_dir), True)
+    return _tmp_dir
 
 
 def _nvcc() -> str:
@@ -68,12 +105,13 @@ class CudaLibrary:
             src = self.source.read_bytes()
             tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
                                  ).hexdigest()[:16]
-            so = BUILD_DIR / f"{self.stem}-{tag}.so"
+            out_dir = build_dir()
+            so = out_dir / f"{self.stem}-{tag}.so"
             t0 = time.perf_counter()
             log = ""
             built = not so.exists()
             if built:
-                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                out_dir.mkdir(parents=True, exist_ok=True)
                 tmp = so.with_suffix(f".{os.getpid()}.tmp")
                 proc = subprocess.run(
                     [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],

@@ -22,9 +22,11 @@ forward op alone.  There is no fallback between the devices.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -92,9 +94,32 @@ def _attention_backward_plain(q, k, v, o, lse, do, scale, causal, window,
         return flash_attention_ref(q, k, v, window=window, causal=causal,
                                    scale=scale, attn_cap=attn_cap)
 
-    with torch.enable_grad():
+    with _functorch_keys(), torch.enable_grad():
         grads = torch.func.vjp(ref, q, k, v)[1](do)
     return tuple(g.detach() for g in grads)
+
+
+def _functorch_keys():
+    """Inside a ``TorchDispatchMode``'s handler (an accounting or tracing
+    mode that runs the op) every dispatch key above Python is excluded,
+    functorch's and autograd's among them, and ``torch.func.vjp`` fails;
+    there, let those through again (the Python keys stay excluded, so the
+    plain backward's own ops reach no mode).  Elsewhere nothing changes."""
+    C = torch._C
+    if not C._dispatch_tls_is_dispatch_key_excluded(
+            C.DispatchKey.FuncTorchDynamicLayerFrontMode):
+        return contextlib.nullcontext()
+    exclude = C._dispatch_tls_local_exclude_set()
+    for key in _VJP_KEYS:
+        exclude = exclude.remove(key)
+    return C._ForceDispatchKeyGuard(C._dispatch_tls_local_include_set(),
+                                    exclude)
+
+
+_VJP_KEYS = tuple(getattr(torch._C.DispatchKey, k) for k in (
+    "FuncTorchDynamicLayerFrontMode", "FuncTorchDynamicLayerBackMode",
+    "FuncTorchGradWrapper", "ADInplaceOrView", "AutogradOther",
+    "AutogradFunctionality"))
 
 
 def _attention_backward_fake(q, k, v, o, lse, do, scale, causal, window,
@@ -112,6 +137,37 @@ for _name, _card, _plain, _fake in (
     torch.library.register_fake(f"repro_torch::{_name}", _fake, lib=_LIB)
 attention_op = torch.ops.repro_torch.flash_attention.default
 attention_backward_op = torch.ops.repro_torch.flash_attention_backward.default
+
+
+# FLOP formulas, so that any ``FlopCounterMode`` (and the dry run's
+# accounting, ``launch/graph_analysis.py``) counts K6.  The context a
+# query attends to is ``model_flops``'s: ``min(window, Tk)`` keys for a
+# windowed call, ``Tk / 2`` for a causal one, ``Tk`` otherwise; not the
+# exact count of unmasked pairs, nor the kernel's whole tiles.  The
+# forward is QKᵀ and PV; the backward follows the registry's formula for
+# SDPA's backward: the recomputed QKᵀ, dP = dO·Vᵀ, dV, dQ and dK.
+def _pair_flops(q_shape, k_shape, causal, window) -> int:
+    """2 × (query, key) pairs attended, per unit of head width."""
+    B, Tq, H, _ = q_shape
+    Tk = k_shape[1]
+    if window:
+        return 2 * B * H * Tq * min(window, Tk)
+    if causal:
+        return B * H * Tq * Tk
+    return 2 * B * H * Tq * Tk
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _attention_flops(q, k, v, scale, causal, window, attn_cap, with_lse,
+                     *args, out_shape=None, **kwargs) -> int:
+    return _pair_flops(q, k, causal, window) * (q[-1] + v[-1])
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_backward)
+def _attention_backward_flops(q, k, v, o, lse, do, scale, causal, window,
+                              attn_cap, *args, out_shape=None,
+                              **kwargs) -> int:
+    return _pair_flops(q, k, causal, window) * (3 * q[-1] + 2 * v[-1])
 
 
 class FlashAttentionBackward(torch.autograd.Function):

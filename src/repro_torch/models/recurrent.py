@@ -160,6 +160,19 @@ def init_mlstm(cfg, gen, *, lead: Tuple[int, ...] = (),
     }
 
 
+def time_loop(step, consts, carry, xs):
+    """The cell ``step(consts, carry, x_t) -> (carry, h_t)`` over axis 1 of
+    each of ``xs`` → (final carry, the h_t stacked on axis 1): the
+    reference's ``lax.scan`` as a Python loop, one set of nodes a step in
+    a traced graph.  The dry run (``launch/dryrun.py``) accounts it as one
+    step T times."""
+    hs = []
+    for t in range(xs[0].shape[1]):
+        carry, h = step(consts, carry, tuple(x[:, t] for x in xs))
+        hs.append(h)
+    return carry, torch.stack(hs, dim=1)
+
+
 def _mlstm_qkvif(cfg, p, x):
     dt = x.dtype
     B, T, _ = x.shape
@@ -173,7 +186,7 @@ def _mlstm_qkvif(cfg, p, x):
     return q, k, v, logi, logf
 
 
-def _mlstm_step(carry, inp):
+def _mlstm_step(_consts, carry, inp):
     C, n, m = carry            # (B,H,hd,hd), (B,H,hd), (B,H)
     q, k, v, logi, logf = inp  # (B,H,hd) ×3, (B,H) ×2
     m_new = torch.maximum(logf + m, logi)
@@ -202,13 +215,9 @@ def _mlstm_run(cfg, p, x):
     H, hd = _heads(cfg)
     q, k, v, logi, logf = _mlstm_qkvif(cfg, p, x)
     s = mlstm_init_state(cfg, B, device=x.device)
-    carry = (s["C"], s["n"], s["m"])
-    hs = []
-    for t in range(T):
-        carry, h = _mlstm_step(carry, (q[:, t], k[:, t], v[:, t],
-                                       logi[:, t], logf[:, t]))
-        hs.append(h)
-    h = torch.stack(hs, dim=1).reshape(B, T, H * hd).to(x.dtype)
+    carry, h = time_loop(_mlstm_step, None, (s["C"], s["n"], s["m"]),
+                         (q, k, v, logi, logf))
+    h = h.reshape(B, T, H * hd).to(x.dtype)
     z = F.silu(dot(x, p["wz"].to(x.dtype)))
     out = dot(h * z, p["wo"].to(x.dtype))
     return out, {"C": carry[0], "n": carry[1], "m": carry[2]}
@@ -225,8 +234,8 @@ def mlstm_prefill(cfg, p, x: torch.Tensor):
 def mlstm_decode(cfg, p, x, state):
     q, k, v, logi, logf = _mlstm_qkvif(cfg, p, x)      # T = 1
     carry = (state["C"], state["n"], state["m"])
-    carry, h = _mlstm_step(carry, (q[:, 0], k[:, 0], v[:, 0],
-                                   logi[:, 0], logf[:, 0]))
+    carry, h = _mlstm_step(None, carry, (q[:, 0], k[:, 0], v[:, 0],
+                                         logi[:, 0], logf[:, 0]))
     B = x.shape[0]
     h = h.reshape(B, 1, -1).to(x.dtype)
     z = F.silu(dot(x, p["wz"].to(x.dtype)))
@@ -305,13 +314,9 @@ def _slstm_run(cfg, p, x):
     xz, xi, xf, xo = _slstm_inputs(cfg, p, x)
     p32 = _slstm_p32(p)
     s = slstm_init_state(cfg, B, device=x.device)
-    carry = (s["c"], s["n"], s["m"], s["h"])
-    hs = []
-    for t in range(T):
-        carry, h = _slstm_step(p32, carry,
-                               (xz[:, t], xi[:, t], xf[:, t], xo[:, t]))
-        hs.append(h)
-    h = torch.stack(hs, dim=1).reshape(B, T, H * hd).to(x.dtype)
+    carry, h = time_loop(_slstm_step, p32,
+                         (s["c"], s["n"], s["m"], s["h"]), (xz, xi, xf, xo))
+    h = h.reshape(B, T, H * hd).to(x.dtype)
     out = dot(h, p["wo"].to(x.dtype))
     return out, {"c": carry[0], "n": carry[1], "m": carry[2], "h": carry[3]}
 
