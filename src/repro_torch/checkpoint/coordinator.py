@@ -1229,17 +1229,18 @@ class CoordinatedCheckpointManager:
     # --- retention (leader only) ----------------------------------------
 
     def _gc(self, lv: Level) -> None:
-        try:
-            entries = os.listdir(lv.directory)
-        except FileNotFoundError:
-            return
-        for e in entries:
-            if pending_step_of_entry(e) is not None:
-                if not tmp_writer_alive(lv.directory, e,
-                                        self.pending_ttl_s):
-                    shutil.rmtree(os.path.join(lv.directory, e),
-                                  ignore_errors=True)
-        sweep_retention(lv.directory, lv.keep_n)
+        with self.obs.tracer.span("save.retention") as sp:
+            try:
+                entries = os.listdir(lv.directory)
+            except FileNotFoundError:
+                return
+            for e in entries:
+                if pending_step_of_entry(e) is not None:
+                    if not tmp_writer_alive(lv.directory, e,
+                                            self.pending_ttl_s):
+                        shutil.rmtree(os.path.join(lv.directory, e),
+                                      ignore_errors=True)
+            sp.set(**sweep_retention(lv.directory, lv.keep_n))
 
     # --- restore ---------------------------------------------------------
 
@@ -1481,7 +1482,8 @@ class CoordinatedCheckpointManager:
                     stats["h2d_bytes"] += payload.nbytes
                     return from_host(payload, dtype, device)
                 arr, moved = scatter_sharded_payload(
-                    payload, mask, (local_n,), dtype, device, fill=fill)
+                    payload, mask, (local_n,), dtype, device, fill=fill,
+                    tracer=self.obs.tracer)
                 stats["h2d_bytes"] += moved
                 return arr
 

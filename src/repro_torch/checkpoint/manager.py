@@ -181,6 +181,11 @@ def update_report(scrutiny_fn, prev, saves: int, every: int, state,
     return new, True
 
 
+def _region_count(p) -> int:
+    """Runs a packed leaf's mask is stored as (0 for a bitmap)."""
+    return len(p.aux) // 16 if p.encoding == "regions" else 0
+
+
 def _nbytes(x) -> int:
     return int(x.nbytes)
 
@@ -950,7 +955,7 @@ class CheckpointManager:
             if capture is not None:
                 self._drop_chain(lv, capture)
             raise
-        self._gc(lv)
+        self._retain(lv, snap)
         return path
 
     def _run_delta(self, lv: Level, step: int, snap: _SaveSnapshot,
@@ -978,8 +983,13 @@ class CheckpointManager:
         except BaseException:
             self._drop_chain(lv, cs)
             raise
-        self._gc(lv)
+        self._retain(lv, snap)
         return path
+
+    def _retain(self, lv: Level, snap: _SaveSnapshot) -> None:
+        t0 = time.perf_counter()
+        self._gc(lv)
+        snap.stage_max("retention_s", time.perf_counter() - t0)
 
     def _drop_chain(self, lv: Level, cs: _ChainState):
         """A chained write failed on the writer thread: later saves must
@@ -999,7 +1009,7 @@ class CheckpointManager:
         stale — a sibling manager's in-flight write survives.  (Writes per
         level are double-buffered, so none of *this* manager's writers are
         active in the directory during its own ``_gc``.)"""
-        with self._lock:
+        with self._lock, self.obs.tracer.span("save.retention") as sp:
             try:
                 entries = os.listdir(lv.directory)
             except FileNotFoundError:
@@ -1022,7 +1032,7 @@ class CheckpointManager:
                     continue           # live foreign writer: not ours to GC
                 shutil.rmtree(os.path.join(lv.directory, e),
                               ignore_errors=True)
-            sweep_retention(lv.directory, lv.keep_n)
+            sp.set(**sweep_retention(lv.directory, lv.keep_n))
 
     # --- restore -----------------------------------------------------------
 
@@ -1058,17 +1068,20 @@ class CheckpointManager:
         mode = self.restore_mode if mode is None else mode
         self._check_mode("restore mode", mode)
         skipped: List[Dict[str, Any]] = []
+        tracer = self.obs.tracer
         for step, root in self._candidates():
             io_stats: Dict[str, int] = {}
-            try:
-                with self.obs.tracer.span("restore.read", step=step):
-                    step, packed, _ = load_checkpoint_raw(root, step,
-                                                          io_stats=io_stats)
-            except (OSError, ValueError, KeyError) as e:
-                skipped.append({"step": step, "root": root, "error": str(e)})
-                continue
-            return self._materialize(state_like, packed, fill, mode, step,
-                                     skipped, io_stats)
+            with tracer.span("restore.step", step=step):
+                try:
+                    with tracer.span("restore.read", step=step):
+                        step, packed, _ = load_checkpoint_raw(
+                            root, step, io_stats=io_stats)
+                except (OSError, ValueError, KeyError) as e:
+                    skipped.append({"step": step, "root": root,
+                                    "error": str(e)})
+                    continue
+                return self._materialize(state_like, packed, fill, mode,
+                                         step, skipped, io_stats)
         if skipped:
             self.last_restore_stats = self.obs.registry.publish(
                 "restore", {"skipped": skipped, "step": None})
@@ -1078,6 +1091,7 @@ class CheckpointManager:
                      io_stats=None) -> Tuple[int, Any]:
         named, treedef = _tree.flatten_with_names(state_like)
         dev = self.device
+        tracer = self.obs.tracer
         h2d = 0
         full = 0
         device_leaves = 0
@@ -1098,15 +1112,19 @@ class CheckpointManager:
             if (mode in ("auto", "device") and not p.region_tiers
                     and p.encoding in ("regions", "bitmap")
                     and stored_n == n):
-                mask = leaf_mask(p)
+                with tracer.span("restore.mask", elements=n,
+                                 regions=_region_count(p)):
+                    mask = leaf_mask(p)
                 payload = np.frombuffer(p.payload, host_dtype(p.dtype))
                 arr, moved = scatter_sharded_payload(
-                    payload, mask, shape, p.dtype, dev, fill=fill)
+                    payload, mask, shape, p.dtype, dev, fill=fill,
+                    tracer=tracer)
                 h2d += moved
                 device_leaves += 1
             else:                       # host expand (full/tiered leaves)
-                a = unpack_leaf(p, fill=fill)
-                arr = from_host(a.reshape(shape), p.dtype, dev)
+                with tracer.span("restore.expand", elements=n):
+                    a = unpack_leaf(p, fill=fill)
+                    arr = from_host(a.reshape(shape), p.dtype, dev)
                 h2d += a.nbytes
             if p.dtype != like_dtype:
                 arr = arr.to(torch_dtype(like_dtype))   # cast on device

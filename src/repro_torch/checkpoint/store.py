@@ -208,31 +208,36 @@ def list_steps(root: str) -> List[int]:
     return steps
 
 
-def sweep_retention(root: str, keep_n: int) -> None:
+def sweep_retention(root: str, keep_n: int) -> Dict[str, int]:
     """The one committed-step retention policy (single-process manager and
     coordinated leader both call this, so the rules cannot drift): reap
     dead partial commits — an uncommitted step older than the newest
     committed one, i.e. a commit nobody will ever finish — then keep the
     newest ``keep_n`` committed steps plus every chain predecessor they
     reference (``keep_n <= 0`` disables retention).  Tmp/pending-dir
-    sweeping stays with the callers (their liveness rules differ)."""
+    sweeping stays with the callers (their liveness rules differ).
+    Returns what it did: ``steps_listed``, ``manifests_read``,
+    ``removed``."""
+    done = {"steps_listed": 0, "manifests_read": 0, "removed": 0}
     try:
         entries = os.listdir(root)
     except FileNotFoundError:
-        return
+        return done
     committed, uncommitted = [], []
     for e in entries:
         s = step_of_entry(e)
         if s is None:
             continue
         (committed if is_step_committed(root, s) else uncommitted).append(s)
+    done["steps_listed"] = len(committed) + len(uncommitted)
     committed.sort()
     for s in uncommitted:
         if committed and s < committed[-1]:
             shutil.rmtree(os.path.join(root, f"step_{s}"),
                           ignore_errors=True)
+            done["removed"] += 1
     if keep_n <= 0:
-        return
+        return done
     keep = committed[-keep_n:]
     needed = set(keep)
     for s in keep:
@@ -240,10 +245,13 @@ def sweep_retention(root: str, keep_n: int) -> None:
             needed.update(chain_steps(read_manifest(root, s)))
         except (OSError, ValueError, KeyError):
             continue               # unreadable manifest: no deps to pin
+        done["manifests_read"] += 1
     for s in committed:
         if s not in needed:
             shutil.rmtree(os.path.join(root, f"step_{s}"),
                           ignore_errors=True)
+            done["removed"] += 1
+    return done
 
 
 def committed_steps(root: str) -> List[int]:

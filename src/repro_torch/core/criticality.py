@@ -723,7 +723,6 @@ def scrutinize(fn: Callable[[Any], Any], state: Any, *,
     if eng.dead and not pre.differentiable:
         raise ValueError("scrutinize: fn produced no differentiable "
                          "outputs; criticality via AD is undefined.")
-    t0 = time.perf_counter()
     with obs.tracer.span("scrutiny.sweep", engine=engine,
                          probes=eng.probes, leaves=len(eng.ad_idx)):
         if engine == "host":
@@ -732,9 +731,8 @@ def scrutinize(fn: Callable[[Any], Any], state: Any, *,
             rep = _scrutinize_device(eng, names, leaves, policies, config,
                                      pre)
     if obs.enabled:
-        reg = obs.registry
-        reg.histogram("scrutiny.sweep_s").observe(time.perf_counter() - t0)
-        reg.counter("scrutiny.d2h_bytes").inc(int(rep.stats["d2h_bytes"]))
+        obs.registry.counter("scrutiny.d2h_bytes").inc(
+            int(rep.stats["d2h_bytes"]))
     return rep
 
 

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch import _tree
+from repro_torch import obs as obs_mod
 from repro_torch._tensors import from_host
 from repro_torch.kernels.mask_pack import ops as mask_ops
 from repro_torch.kernels.mask_pack.ref import BLOCK
@@ -333,18 +334,31 @@ def leading_axis_device_segments(sharding, shape
 
 def scatter_sharded_payload(payload: np.ndarray, mask: np.ndarray, shape,
                             dtype: str, device, *, fill=0,
-                            block: int = BLOCK):
+                            block: int = BLOCK, tracer=None):
     """Move only the critical ``payload`` (host array of dtype ``dtype``)
     and the mask's ``np.packbits`` words H2D and scatter the payload under
     the words into a fill-initialized tensor on ``device`` (K4 reads the
     words as they are).  A leaf with no critical element moves no words
-    and runs no K4.  Returns ``(tensor, h2d_bytes)``."""
+    and runs no K4.  Returns ``(tensor, h2d_bytes)``.
+
+    Spans on ``tracer`` (the process's by default): ``restore.mask``, the
+    words; ``restore.h2d``, both moves, with ``from_host``'s host copy of a
+    read-only payload; ``restore.scatter``, K4's launch."""
+    if tracer is None:
+        tracer = obs_mod.get_obs().tracer
     shape = tuple(shape)
     n = int(np.prod(shape)) if shape else 1
     payload = np.asarray(payload).reshape(-1)
-    bits = (np.packbits(np.asarray(mask, bool).reshape(-1)) if payload.size
-            else np.zeros(0, np.uint8))
-    out = mask_ops.mask_scatter(from_host(payload, dtype, device),
-                                torch.from_numpy(bits).to(device), n=n,
-                                fill=fill, block=block)
-    return out.reshape(shape), payload.nbytes + bits.nbytes
+    with tracer.span("restore.mask", elements=n):
+        bits = (np.packbits(np.asarray(mask, bool).reshape(-1))
+                if payload.size else np.zeros(0, np.uint8))
+    moved = payload.nbytes + bits.nbytes
+    copied = (0 if payload.flags.writeable and payload.flags.c_contiguous
+              else payload.nbytes)
+    with tracer.span("restore.h2d", bytes=moved, host_copy_bytes=copied):
+        payload_dev = from_host(payload, dtype, device)
+        words_dev = torch.from_numpy(bits).to(device)
+    with tracer.span("restore.scatter"):
+        out = mask_ops.mask_scatter(payload_dev, words_dev, n=n, fill=fill,
+                                    block=block)
+    return out.reshape(shape), moved

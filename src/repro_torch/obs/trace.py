@@ -14,6 +14,18 @@ Two span shapes cover every path in the checkpoint stack:
   matches begin/end by ``(cat, id)``, so the pair may cross threads;
   stage sub-spans carry ``args.parent = <id>`` linking them back.
 
+While tracing is on, each thread keeps a stack of its open spans: every
+``X`` event carries its own ``id`` and, inside another span or stage on
+the same thread, ``args.parent`` = the id of the innermost one (the span
+that caused it).  A stage's ``parent`` stays its handle's id.
+
+Every timestamp comes from :func:`clock_ns`, the host clock that
+``torch.profiler`` stamps its events with (the wall clock, as
+``time.time_ns``), relative to the buffer's ``epoch_ns`` on that same
+clock: ``TraceBuffer.to_ns(ts)`` is a span's start in the profiler's
+nanoseconds, so a traced run can lay the program's spans over the
+card's timeline.
+
 Every simulated or real host binds its own ``pid`` (one process-track per
 host in Perfetto) while sharing one :class:`TraceBuffer`, so a thread-
 simulated multi-host run still exports a single loadable trace file.
@@ -31,6 +43,10 @@ import json
 import threading
 import time
 from typing import Any, Dict, List, Optional
+
+#: the host clock of every span: the one ``torch.profiler`` stamps its host
+#: events with, and aligns the card's events to
+clock_ns = time.time_ns
 
 
 class ObsState:
@@ -92,16 +108,28 @@ class TraceBuffer:
         # before it, so every readout prepends the full metadata set
         self._meta: List[Dict[str, Any]] = []
         self._meta_seen: set = set()
-        self._epoch = time.perf_counter()
+        self.epoch_ns = clock_ns()
         self._ids = itertools.count(1)
+        self._local = threading.local()
 
     # -- time / ids --------------------------------------------------------
 
     def now_us(self) -> float:
-        return (time.perf_counter() - self._epoch) * 1e6
+        return (clock_ns() - self.epoch_ns) / 1e3
+
+    def to_ns(self, ts_us: float) -> int:
+        """A ``ts`` (µs from the epoch) on :func:`clock_ns`, exactly."""
+        return self.epoch_ns + round(ts_us * 1e3)
 
     def next_id(self) -> int:
         return next(self._ids)
+
+    def open_spans(self) -> List[int]:
+        """The calling thread's stack of open span ids, innermost last."""
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
 
     # -- event intake ------------------------------------------------------
 
@@ -164,9 +192,11 @@ class TraceBuffer:
 
 
 class _Span:
-    """Same-thread complete event (``ph: "X"``)."""
+    """Same-thread complete event (``ph: "X"``) with its own ``id``; its
+    ``args.parent`` is the enclosing span's on this thread, unless given
+    (a stage's handle)."""
 
-    __slots__ = ("_buf", "_pid", "name", "cat", "args", "_t0")
+    __slots__ = ("_buf", "_pid", "name", "cat", "args", "id", "_t0")
 
     def __init__(self, buf: TraceBuffer, pid: int, name: str, cat: str,
                  args: Dict[str, Any]):
@@ -175,9 +205,15 @@ class _Span:
         self.name = name
         self.cat = cat
         self.args = args
+        self.id = 0
         self._t0 = 0.0
 
     def __enter__(self) -> "_Span":
+        stack = self._buf.open_spans()
+        self.id = self._buf.next_id()
+        if stack and "parent" not in self.args:
+            self.args["parent"] = stack[-1]
+        stack.append(self.id)
         self._t0 = self._buf.now_us()
         return self
 
@@ -186,10 +222,12 @@ class _Span:
 
     def __exit__(self, *exc) -> bool:
         t1 = self._buf.now_us()
+        self._buf.open_spans().remove(self.id)
         self._buf.add({
             "ph": "X", "name": self.name, "cat": self.cat,
             "pid": self._pid, "tid": threading.get_ident(),
-            "ts": self._t0, "dur": t1 - self._t0, "args": self.args})
+            "ts": self._t0, "dur": t1 - self._t0, "id": self.id,
+            "args": self.args})
         return False
 
 
@@ -259,11 +297,3 @@ class Tracer:
         if not self.state.enabled:
             return _NULL_HANDLE
         return SpanHandle(self.buffer, self.pid, name, cat, args)
-
-    def instant(self, name: str, cat: str = "ckpt", **args) -> None:
-        if not self.state.enabled:
-            return
-        self.buffer.add({
-            "ph": "i", "name": name, "cat": cat, "s": "t",
-            "pid": self.pid, "tid": threading.get_ident(),
-            "ts": self.buffer.now_us(), "args": args})

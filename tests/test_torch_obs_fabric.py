@@ -9,7 +9,12 @@
   ``telemetry.json`` with drift records, one trace process per host, and
   the port's report CLI renders it; the port's CLI renders the
   reference's ``telemetry.json`` line for line as the reference's CLI
-  does; a missing telemetry file is an error.
+  does; a missing telemetry file is an error;
+* spans on ``torch.profiler``'s clock (a span contains the profiler's
+  event once converted), each ``X`` event's own id and its enclosing
+  span's as ``args.parent`` (one thread, across threads, inside a stage),
+  the null singletons with tracing off, and the restore's and the
+  retention's spans at their call sites.
 """
 
 import json
@@ -38,6 +43,7 @@ from repro_torch.distributed.collective import (BarrierTimeout,
                                                 ProcessContext)
 from repro_torch.obs import report as report_mod
 from repro_torch.obs.drift import DriftTracker, popcount_sum
+from repro_torch.obs import trace
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import ObsState
 
@@ -293,3 +299,129 @@ def test_port_cli_renders_reference_telemetry_as_reference_cli(tmp_path,
 def test_report_cli_missing_telemetry(tmp_path, capsys):
     assert report_mod.main([str(tmp_path)]) == 2
     assert "no telemetry.json" in capsys.readouterr().out
+
+
+# --------------------------------------------------------------------------
+# spans: the profiler's clock, parents, call sites
+# --------------------------------------------------------------------------
+
+def test_spans_share_the_profilers_clock(obs_on):
+    """An obs span around a ``record_function`` range contains the
+    profiler's event once its ``ts`` is put back on the profiler's clock,
+    and ``to_ns`` inverts ``ts`` exactly."""
+    buf = obs_on.buffer
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        with obs_on.tracer.span("outer"):
+            with torch.profiler.record_function("inner"):
+                torch.ones(64).sum()
+    [ev] = [e for e in prof.profiler.kineto_results.events()
+            if e.name() == "inner"]
+    [sp] = [e for e in buf.events_since(0) if e.get("name") == "outer"]
+    lo, hi = buf.to_ns(sp["ts"]), buf.to_ns(sp["ts"] + sp["dur"])
+    assert lo <= ev.start_ns() <= ev.end_ns() <= hi
+    for t in (buf.epoch_ns, trace.clock_ns(), buf.epoch_ns + 3 * 10 ** 12 + 7):
+        assert buf.to_ns((t - buf.epoch_ns) / 1e3) == t
+
+
+def test_nested_spans_carry_their_parent(obs_on):
+    tr = obs_on.tracer
+
+    def worker():
+        with tr.span("w.outer"):
+            with tr.span("w.inner"):
+                pass
+
+    with tr.span("outer"):
+        with tr.span("mid"):
+            t = threading.Thread(target=worker)
+            t.start()
+            t.join(timeout=30)
+            with tr.span("leaf"):
+                pass
+        h = tr.begin("job")
+        with h.stage("stage"):
+            with tr.span("in_stage"):
+                pass
+        h.finish()
+    assert not t.is_alive()
+    ev = {e["name"]: e for e in obs_on.buffer.events_since(0)
+          if e["ph"] == "X"}
+    ids = {n: e["id"] for n, e in ev.items()}
+    assert len(set(ids.values())) == len(ids) and h.id not in ids.values()
+    assert "parent" not in ev["outer"]["args"]
+    assert ev["mid"]["args"]["parent"] == ids["outer"]
+    assert ev["leaf"]["args"]["parent"] == ids["mid"]
+    # another thread keeps a stack of its own
+    assert "parent" not in ev["w.outer"]["args"]
+    assert ev["w.inner"]["args"]["parent"] == ids["w.outer"]
+    # a stage keeps its handle; a span inside it points at the stage
+    assert ev["stage"]["args"]["parent"] == h.id
+    assert ev["in_stage"]["args"]["parent"] == ids["stage"]
+    assert obs_on.buffer.open_spans() == []
+
+
+def test_tracing_off_returns_the_null_singletons():
+    obs.reset()
+    obs.disable()
+    bundle = obs.get_obs()
+    n0 = len(bundle.buffer)
+    assert bundle.tracer.span("x", a=1) is trace._NULL_SPAN
+    assert bundle.tracer.begin("y") is trace._NULL_HANDLE
+    with bundle.tracer.span("x"):
+        assert bundle.buffer.open_spans() == []
+    assert len(bundle.buffer) == n0
+
+
+def test_restore_and_retention_spans(obs_on, tmp_path):
+    """A device-mode restore: ``restore.step`` is the parent of the read
+    and of each leaf's words, copies and K4 launch; each save's
+    ``save.retention`` says what the sweep listed, read and removed."""
+    st = state_from_numpy(_np_state(0), "cpu")
+    rep = report_from_masks(_masks(), st)
+    chained = TC.CheckpointManager(
+        [TC.Level(str(tmp_path / "chain"), keep_n=1, max_chain=4)],
+        scrutiny_fn=lambda s: rep, save_mode="device",
+        restore_mode="device", device="cpu")
+    plain = TC.CheckpointManager(
+        [TC.Level(str(tmp_path / "plain"), keep_n=1)],
+        scrutiny_fn=lambda s: rep, save_mode="device", device="cpu")
+    for step in range(3):
+        for mgr in (chained, plain):
+            mark = obs_on.buffer.mark()
+            mgr.save(step, st, block=True)
+            [ret] = [e for e in obs_on.buffer.events_since(mark)
+                     if e.get("name") == "save.retention"]
+            kept = min(step, 1) if mgr is plain else step
+            assert ret["args"] == {"steps_listed": kept + 1,
+                                   "manifests_read": 1,
+                                   "removed": min(step, 1) * (mgr is plain)}
+            stages = mgr.last_save_stats["stages"]
+            assert stages["retention_s"] >= 0
+    plain.close()
+    mark = obs_on.buffer.mark()
+    step, out = chained.restore(st)
+    chained.close()
+    assert step == 2
+    for k, v in _np_state(0).items():
+        m = _masks().get(k)
+        got = out[k].numpy()
+        np.testing.assert_array_equal(got if m is None else got.reshape(-1)[m],
+                                      v if m is None else v.reshape(-1)[m])
+    ev = [e for e in obs_on.buffer.events_since(mark) if e["ph"] == "X"]
+    [root] = [e for e in ev if e["name"] == "restore.step"]
+    kids = [e for e in ev if e["args"].get("parent") == root["id"]]
+    names = {e["name"] for e in kids}
+    assert {"restore.read", "restore.mask", "restore.h2d",
+            "restore.scatter"} <= names <= {
+        "restore.read", "restore.mask", "restore.h2d", "restore.scatter",
+        "restore.expand"}
+    assert len(kids) == len(ev) - 1          # nothing nests deeper
+    h2d = [e["args"] for e in kids if e["name"] == "restore.h2d"]
+    assert sum(a["bytes"] for a in h2d) <= \
+        chained.last_restore_stats["h2d_bytes"]
+    # the payload read from the store is read-only: copied, the words not
+    assert all(0 < a["host_copy_bytes"] < a["bytes"] for a in h2d)
+    masks = [e["args"] for e in kids if e["name"] == "restore.mask"
+             and "regions" in e["args"]]
+    assert masks and all(a["elements"] > 0 for a in masks)
