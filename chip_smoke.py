@@ -83,6 +83,7 @@ from repro_torch.kernels.lru_scan.ref import (  # noqa: E402
     lru_scan_ref)
 from repro_torch.kernels.mask_pack import kernel as K  # noqa: E402
 from repro_torch.kernels.mask_pack import ops, ref  # noqa: E402
+from repro_torch.core.regions import mask_to_regions  # noqa: E402
 
 DEV = "cuda"
 DTYPES = (torch.float16, torch.bfloat16, torch.float32, torch.float64,
@@ -225,6 +226,14 @@ def phase_kernels() -> int:
             check(same_bytes(forms["words"], ref.bitpack_ref(
                 sel.to(torch.float32), 0.0)[0]),
                   f"mask_to_words n={n} frac={frac}")
+            # K8: the words of the mask's region table (no run at frac 0)
+            table = torch.from_numpy(
+                mask_to_regions(sel.cpu().numpy())).to(DEV)
+            w8 = ops.regions_words(table, n=n)
+            check(same_bytes(w8, forms["words"])
+                  and same_bytes(w8, ref.regions_words_ref(table, n)),
+                  f"K8 n={n} frac={frac} ({table.shape[0]} runs)")
+            cases += 1
             # the dense pack's leaves: a 3-element all-critical head puts
             # the later leaves at odd offsets of the payload
             head = min(3, n)
@@ -614,8 +623,10 @@ def phase_flash_attention() -> int:
 # ----------------------------------------------------------------------------
 
 N_W, N_B, N_H = 1 << 29, 1 << 26, 1 << 27
-# the mask kernels of the checkpoint path (K5 runs on the NPB path only)
-CKPT_KERNELS = ("threshold_bitpack", "pack", "delta_flags", "mask_scatter")
+# the mask kernels of the checkpoint path (K5 runs on the NPB path only;
+# K8 in a device restore of a leaf stored as a region table)
+CKPT_KERNELS = ("threshold_bitpack", "pack", "delta_flags", "mask_scatter",
+                "regions_words")
 CRIT_W = 0.148               # the paper's BT(u) critical fraction
 MUTATED = 1 << 18            # 1 MiB of w, changed right after save()
 
@@ -650,6 +661,19 @@ def synced(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def restore_k8(mgr, like, what: str, tables: bool = True):
+    """``mgr.restore(like)``, checked to launch K8 once for each leaf whose
+    words it wrote from the stored region table (``mask_words``), and, with
+    ``tables``, to have done so for one leaf at least."""
+    before = K.LAUNCHES["regions_words"]
+    out = mgr.restore(like)
+    words = mgr.last_restore_stats["mask_words"]
+    k8 = K.LAUNCHES["regions_words"] - before
+    check(k8 == words["regions_on_card"] and (k8 > 0 or not tables),
+          f"{what}: K8 launched {k8} times, mask words {words}")
+    return out
 
 
 def phase_setup() -> None:
@@ -706,7 +730,7 @@ def phase_main_path(root: str):
     torch.cuda.synchronize()
     save_s = time.perf_counter() - t0
     like = {k: torch.empty_like(v) for k, v in state.items()}
-    (step, r1), _ = synced(lambda: mgr.restore(like))
+    (step, r1), _ = synced(lambda: restore_k8(mgr, like, "main step 1"))
     m = sel_w[:MUTATED]
     check(step == 1 and torch.equal(r1["w"][:MUTATED][m], head[m]),
           "step 1 must restore the bytes as they were at save()")
@@ -726,7 +750,8 @@ def phase_main_path(root: str):
           f"step 3 must be a delta with 0 changed chunks: {lv3}")
 
     like = {k: torch.empty_like(v) for k, v in state.items()}
-    (step, r), restore_s = synced(lambda: mgr.restore(like))
+    (step, r), restore_s = synced(lambda: restore_k8(mgr, like,
+                                                      "main step 3"))
     rst = mgr.last_restore_stats
     check(step == 3, f"latest step is {step}")
     for name, v in state.items():
@@ -1548,7 +1573,7 @@ def phase_serving(root: str):
     disk = sum(os.path.getsize(os.path.join(root, "step_1", f))
                for f in os.listdir(os.path.join(root, "step_1")))
     (step, restored1), restore_s = synced(
-        lambda: mgr.restore(_empty_like(state)))
+        lambda: restore_k8(mgr, _empty_like(state), "serving step 1"))
     check(step == 1, f"restored step {step}, not 1")
     h2d = mgr.last_restore_stats["h2d_bytes"]
     written = {}
@@ -1559,7 +1584,7 @@ def phase_serving(root: str):
         mgr.save(step, state, block=True)
         check(mgr.last_save_stats["levels"][root]["kind"] == "delta",
               f"step {step} must be a delta")
-    step, restored3 = mgr.restore(_empty_like(state))
+    step, restored3 = restore_k8(mgr, _empty_like(state), "serving step 3")
     check(step == 3, f"restored step {step}, not 3")
     mgr.close()
 
@@ -1949,7 +1974,7 @@ def serve_family(arch, changes, reduced, root, seed):
     check(mgr.last_save_stats["levels"][root]["kind"] == "delta",
           f"{arch}: step 2 must be a delta")
     (step, restored), restore_s = synced(
-        lambda: mgr.restore(_empty_like(state)))
+        lambda: restore_k8(mgr, _empty_like(state), arch, tables=False))
     h2d = mgr.last_restore_stats["h2d_bytes"]
     mgr.close()
     check(step == 2, f"{arch}: restored step {step}, not 2")
@@ -1960,7 +1985,8 @@ def serve_family(arch, changes, reduced, root, seed):
     launches = {**{k: K.LAUNCHES[k] for k in CKPT_KERNELS},
                 "flash_attention": FK.LAUNCHES["flash_attention"]}
     # ---- end of the serving path ---------------------------------------
-    check(all(v > 0 for v in launches.values()),
+    # (K8 is held to the restore's region tables by restore_k8)
+    check(all(v > 0 for k, v in launches.items() if k != "regions_words"),
           f"{arch}: a kernel of its serving path was never launched: "
           f"{launches}")
     # the save moved the critical payload and the restore brought it back
@@ -3571,6 +3597,7 @@ REPLACES = {
     "delta_flags": "src/repro/kernels/mask_pack/kernel.py:247",
     "mask_scatter": "src/repro/kernels/mask_pack/kernel.py:161",
     "unpack": "src/repro/kernels/mask_pack/kernel.py:114",
+    "regions_words": "none",
 }
 
 
@@ -3642,7 +3669,8 @@ def sdpa_call(q, k, v, causal=True):
 def phase_timing(main, fa_in, k5_inputs, fam_k6) -> list:
     """K1–K6 timed at the main path's and the prefill's shapes, K5 also on
     the NPB restart's groups (one a program) and, beside them, leaf by
-    leaf, K6 also at phase 9's four shapes; main() fills in each row's
+    leaf, K6 also at phase 9's four shapes, K8 at a cache leaf of the
+    restore cell and on a fragmented table; main() fills in each row's
     launches."""
     state, sel_w, rep = main["state"], main["sel_w"], main["rep"]
     w = state["w"]
@@ -3793,6 +3821,46 @@ def phase_timing(main, fa_in, k5_inputs, fam_k6) -> list:
           f"from words {k5['bound']:.4f} ms (from a byte mask "
           f"{k5['bound_mask']:.4f}), plain {k5['plain']:.4f} ms; per program "
           f"(ms, per leaf: n, dtype, ms alone) {json.dumps(per_program)}")
+    # K8: the words of a cache leaf of the restore cell, (32, 4, 2048, 8,
+    # 128) bf16, from its region table: one run a (layer, batch) row over
+    # its first 1038 of 2048 slots.  It writes the words and reads the
+    # table, 16 B a run.
+    n8, rows8 = 32 * 4 * 2048 * 8 * 128, 32 * 4
+    starts = torch.arange(rows8, device=DEV, dtype=torch.int64) \
+        * (n8 // rows8)
+    table = torch.stack([starts, starts + 1038 * 8 * 128], 1).contiguous()
+    dense = torch.zeros(n8, dtype=torch.bool, device=DEV)
+    for a, b in table.tolist():
+        dense[a:b] = True
+    check(same_bytes(ops.regions_words(table, n=n8),
+                     ops.mask_to_words(dense)),
+          "K8 at the restore cell's leaf differs from its mask's words")
+    del dense
+    row("regions_words", lambda: ops.regions_words(table, n=n8),
+        lambda: ref.regions_words_ref(table, n8), None,
+        -(-n8 // 8) + 16 * rows8)
+    print(f"time regions_words: batched "
+          f"{batched_ms(lambda: ops.regions_words(table, n=n8)):.4f} ms")
+    # ... and on a fragmented table of the same leaf: about a million
+    # runs of random lengths
+    gen8 = torch.Generator(device=DEV)
+    gen8.manual_seed(8)
+    cuts = torch.unique(torch.randint(0, n8, (2_000_000,), generator=gen8,
+                                      device=DEV))
+    frag = cuts[: cuts.numel() // 2 * 2].view(-1, 2).contiguous()
+    check(same_bytes(ops.regions_words(frag, n=n8),
+                     ref.regions_words_ref(frag, n8)),
+          "K8 on a fragmented table differs from its plain version")
+    b8 = -(-n8 // 8) + 16 * frag.shape[0]
+    print(f"time regions_words fragmented: {frag.shape[0]} runs over {n8} "
+          f"elements, kernel "
+          f"{median_ms(lambda: ops.regions_words(frag, n=n8)):.4f} ms "
+          f"(batched "
+          f"{batched_ms(lambda: ops.regions_words(frag, n=n8)):.4f}), bound "
+          f"{b8 / HBM_BYTES_PER_S * 1e3:.4f} ms, plain "
+          f"{median_ms(lambda: ref.regions_words_ref(frag, n8)):.4f} ms")
+    del table, cuts, frag
+    torch.cuda.empty_cache()
     # K6 at the serving prefill's shape, on layer 0's q/k/v of that run
     q, k, v, kw = fa_in["q"], fa_in["k"], fa_in["v"], fa_in["kw"]
     B, T, H, D = q.shape

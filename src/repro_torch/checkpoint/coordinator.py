@@ -1481,10 +1481,17 @@ class CoordinatedCheckpointManager:
                 if mask is None or payload.size == local_n:
                     stats["h2d_bytes"] += payload.nbytes
                     return from_host(payload, dtype, device)
+                tracer = self.obs.tracer
+                with tracer.span("restore.mask", elements=local_n):
+                    bits = (np.packbits(np.asarray(mask, bool).reshape(-1))
+                            if payload.size else np.zeros(0, np.uint8))
+                with tracer.span("restore.h2d", bytes=bits.nbytes,
+                                 host_copy_bytes=0):
+                    words = torch.from_numpy(bits).to(device)
                 arr, moved = scatter_sharded_payload(
-                    payload, mask, (local_n,), dtype, device, fill=fill,
-                    tracer=self.obs.tracer)
-                stats["h2d_bytes"] += moved
+                    payload, words, (local_n,), dtype, device, fill=fill,
+                    tracer=tracer)
+                stats["h2d_bytes"] += moved + bits.nbytes
                 return arr
 
             if len(pieces) == 1 and pieces[0][0] == 0 \

@@ -63,8 +63,11 @@ asynchronous save engine** (port of ``repro.checkpoint.manager``).
   chain-aware.
 - **Device-resident restore** (``restore_mode``): ``restore`` streams each
   leaf's payload from disk (delta chains reconstructed), moves only the
-  critical payload + bit-packed mask H2D, and re-expands on device with
-  the K4 kernel.  ``last_restore_stats`` records the H2D bytes.
+  critical payload and the stored mask H2D, and re-expands on device with
+  the K4 kernel.  The mask crosses as it is stored: a region table, whose
+  words the K8 kernel writes on the device, or a bitmap, which already is
+  the words; no host mask is made.  ``last_restore_stats`` records the
+  H2D bytes and, under ``mask_words``, how many leaves took each way.
 - **Retention**: keep_n restorable steps per level + their chain
   dependencies; stale ``.tmp_step_*`` dirs from crashed writers are swept.
 
@@ -94,8 +97,8 @@ from repro_torch._tensors import (check_on, from_host, host_dtype, itemsize,
                                   leaf_dtype_name, resolve_device, to_host,
                                   torch_dtype)
 from repro_torch.checkpoint.packing import (DeltaLeaf, delta_encode_host,
-                                            leaf_mask, pack_leaf,
-                                            packed_leaf_stub, unpack_leaf)
+                                            pack_leaf, packed_leaf_stub,
+                                            unpack_leaf)
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.checkpoint.pipeline import (D2H_CHUNK_BYTES, QueueSource,
                                              TransferStream, ViewSource,
@@ -184,6 +187,32 @@ def update_report(scrutiny_fn, prev, saves: int, every: int, state,
 def _region_count(p) -> int:
     """Runs a packed leaf's mask is stored as (0 for a bitmap)."""
     return len(p.aux) // 16 if p.encoding == "regions" else 0
+
+
+# ``last_restore_stats["mask_words"]``: device-restored leaves whose words
+# were written on the device from their region table (K8 on the card), or
+# sent as their stored bitmap, by the stored encoding.
+_WORDS_FROM = {"regions": "regions_on_card", "bitmap": "bitmap_aux"}
+
+
+def _leaf_words(p, n: int, device) -> Tuple[torch.Tensor, int]:
+    """A masked leaf's ``np.packbits`` words on ``device``, straight from
+    its stored aux, and the bytes that crossed H2D for them.  A region
+    table crosses as it is stored, 16 B a run, and K8
+    (``mask_ops.regions_words``) writes the words where it lands; a
+    bitmap's aux already is the words.  No host mask is made."""
+    if p.encoding == "bitmap":
+        bits = np.frombuffer(p.aux, np.uint8)
+        return from_host(bits, "uint8", device), bits.nbytes
+    regions = np.frombuffer(p.aux, np.int64).reshape(-1, 2)
+    starts, stops = regions[:, 0], regions[:, 1]
+    if len(regions) and not ((starts < stops).all()
+                             and (starts[1:] >= stops[:-1]).all()
+                             and starts[0] >= 0 and stops[-1] <= n):
+        raise ValueError(f"leaf {p.name}: its region table is not sorted, "
+                         f"disjoint runs within its {n} elements")
+    table = from_host(regions, "int64", device)
+    return mask_ops.regions_words(table, n=n), regions.nbytes
 
 
 def _nbytes(x) -> int:
@@ -1095,6 +1124,7 @@ class CheckpointManager:
         h2d = 0
         full = 0
         device_leaves = 0
+        mask_words = dict.fromkeys(_WORDS_FROM.values(), 0)
         missing: List[str] = []
         out = []
         for name, leaf in named:
@@ -1112,12 +1142,16 @@ class CheckpointManager:
             if (mode in ("auto", "device") and not p.region_tiers
                     and p.encoding in ("regions", "bitmap")
                     and stored_n == n):
-                with tracer.span("restore.mask", elements=n,
-                                 regions=_region_count(p)):
-                    mask = leaf_mask(p)
                 payload = np.frombuffer(p.payload, host_dtype(p.dtype))
+                words = None
+                if payload.size:    # no critical element: no mask to send
+                    with tracer.span("restore.mask", elements=n,
+                                     regions=_region_count(p)):
+                        words, sent = _leaf_words(p, n, dev)
+                    h2d += sent
+                    mask_words[_WORDS_FROM[p.encoding]] += 1
                 arr, moved = scatter_sharded_payload(
-                    payload, mask, shape, p.dtype, dev, fill=fill,
+                    payload, words, shape, p.dtype, dev, fill=fill,
                     tracer=tracer)
                 h2d += moved
                 device_leaves += 1
@@ -1136,11 +1170,15 @@ class CheckpointManager:
             "step": step, "mode": mode, "h2d_bytes": int(h2d),
             "full_bytes": int(full), "device_leaves": device_leaves,
             "missing_leaves": missing, "skipped": skipped,
-            "bytes_read": read,
+            "bytes_read": read, "mask_words": mask_words,
             # bytes served by the XOR parity rebuild vs plain reads
             "level_bytes": {"l3_parity": parity, "l4_store": read - parity},
             "resilience_level": "l3_parity" if parity else "l4_store"})
         reg = self.obs.registry
         reg.counter("restore.h2d_bytes").inc(int(h2d))
         reg.counter("restore.bytes_read").inc(read)
+        reg.counter("restore.words_from_regions").inc(
+            mask_words["regions_on_card"])
+        reg.counter("restore.words_from_bitmap").inc(
+            mask_words["bitmap_aux"])
         return step, _tree.unflatten(treedef, out)

@@ -1,4 +1,4 @@
-// Hand-written Hopper kernels for the checkpoint mask path (K1-K5).
+// Hand-written Hopper kernels for the checkpoint mask path (K1-K5, K8).
 //
 // Built by repro_torch/kernels/mask_pack/kernel.py at first use:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -7,9 +7,9 @@
 // caller's CUDA stream, launches on that stream, never synchronises and
 // returns cudaGetLastError() so the wrapper can raise on a refused launch.
 //
-// All five kernels move bytes and never do arithmetic on the values they
-// move, so they are exact for every dtype (templated on the element width:
-// 1, 2, 4, 8 or 16 bytes) and for non-finite values.  The TPU versions
+// K1-K5 move bytes and never do arithmetic on the values they move, so
+// they are exact for every dtype (templated on the element width: 1, 2, 4,
+// 8 or 16 bytes) and for non-finite values.  The TPU versions
 // compacted with a 0/1 permutation matmul, where a single inf or NaN in a
 // tile poisons every output of that tile (0 * inf = NaN); nothing here can.
 
@@ -600,6 +600,64 @@ unpack_group_kernel(const __grid_constant__ UnpackTable table) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// K8  regions → words
+// Replaces no TPU kernel.  It was added for the device restore: a leaf
+// stored as a region table (packing's ``regions`` aux, sorted disjoint
+// [start, stop) int64 runs) sends that table H2D, 16 B a run, and the card
+// writes the ceil(n/8) np.packbits words that K4 reads.  Before it the host
+// widened the table into an element-wide mask and packed it again.
+// Bound: bytes.  It writes the words once (n/8 B: 33.5 MB for a
+// 2^28-element leaf, 0.010 ms at 3.35 TB/s) and reads the table, which is
+// small enough to stay in L1 and L2.
+// Design: one thread per 16-byte store (128 elements).  A thread binary-
+// searches the runs' stops (increasing, since the runs are sorted and
+// disjoint) for the first run that ends past its first element, then ORs
+// in each run that starts before its last element, clipped to n, as
+// lane-order bits of four 32-bit words; lane_order() turns each into
+// np.packbits order and one 16-byte store writes them, so a warp's store
+// is 512 contiguous bytes.  The wrapper pads the buffer to a multiple of
+// 16 bytes, so every store is whole; the bits past n are 0.
+// ---------------------------------------------------------------------------
+constexpr int kRegionThreads = 256;
+
+// Lane-order bits of elements [a, b) among the 32 from w0.
+__device__ __forceinline__ uint32_t run_bits(long long a, long long b,
+                                             long long w0) {
+  const long long lo = a > w0 ? a : w0;
+  const long long hi = b < w0 + 32 ? b : w0 + 32;
+  if (lo >= hi) return 0u;
+  const int len = static_cast<int>(hi - lo);
+  const uint32_t m = len == 32 ? 0xffffffffu : (1u << len) - 1u;
+  return m << static_cast<int>(lo - w0);
+}
+
+__global__ void __launch_bounds__(kRegionThreads)
+regions_words_kernel(const long long* __restrict__ regions, long long count,
+                     long long n, uint4* __restrict__ out,
+                     long long vectors) {
+  const long long v = (long long)blockIdx.x * kRegionThreads + threadIdx.x;
+  if (v >= vectors) return;
+  const long long e0 = v * 128, e1 = e0 + 128;
+  long long lo = 0, hi = count;  // the first run with stop > e0
+  while (lo < hi) {
+    const long long mid = (lo + hi) >> 1;
+    if (__ldg(regions + 2 * mid + 1) > e0) hi = mid;
+    else lo = mid + 1;
+  }
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+  for (long long j = lo; j < count; ++j) {
+    const long long s = __ldg(regions + 2 * j);
+    if (s >= e1) break;
+    const long long stop = __ldg(regions + 2 * j + 1);
+    const long long e = stop < n ? stop : n;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) w[k] |= run_bits(s, e, e0 + 32 * k);
+  }
+  out[v] = make_uint4(lane_order(w[0]), lane_order(w[1]), lane_order(w[2]),
+                      lane_order(w[3]));
+}
+
 inline unsigned grid_for(long long n, int tile) {
   return static_cast<unsigned>((n + tile - 1) / tile);
 }
@@ -792,6 +850,21 @@ int mp_unpack_group(const UnpackArg* args, int count, void* stream) {
                                   kMoveThreads),
                         kMoveThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       table);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K8: the words of n elements from ``count`` sorted, disjoint runs
+// (``regions``: count (start, stop) pairs) into ``out``, ceil(n/8) bytes
+// padded to a multiple of 16 and 16-byte aligned.
+int mp_regions_words(const long long* regions, long long count, long long n,
+                     void* out, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  if (count < 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long vectors = (n + 127) / 128;
+  regions_words_kernel<<<grid_for(vectors, kRegionThreads), kRegionThreads,
+                         0, static_cast<cudaStream_t>(stream)>>>(
+      regions, count, n, static_cast<uint4*>(out), vectors);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,7 +21,8 @@ ownership (``collective.process_segments``) and the coordinator's
 restore targets (``leading_axis_device_segments``) read.
 
 **Scatter.**  ``scatter_sharded_payload`` moves a leaf's critical payload
-and its mask's words H2D and expands them with K4 on one device.
+H2D and expands it with K4 on one device, under mask words the caller has
+put there.
 """
 
 from __future__ import annotations
@@ -332,33 +333,33 @@ def leading_axis_device_segments(sharding, shape
 # Scrutinized restore path: scatter after a payload-only H2D
 # --------------------------------------------------------------------------
 
-def scatter_sharded_payload(payload: np.ndarray, mask: np.ndarray, shape,
+def scatter_sharded_payload(payload: np.ndarray,
+                            words: Optional[torch.Tensor], shape,
                             dtype: str, device, *, fill=0,
                             block: int = BLOCK, tracer=None):
     """Move only the critical ``payload`` (host array of dtype ``dtype``)
-    and the mask's ``np.packbits`` words H2D and scatter the payload under
-    the words into a fill-initialized tensor on ``device`` (K4 reads the
-    words as they are).  A leaf with no critical element moves no words
-    and runs no K4.  Returns ``(tensor, h2d_bytes)``.
+    H2D and scatter it under the mask's ``np.packbits`` ``words``, already
+    on ``device``, into a fill-initialized tensor there (K4 reads the words
+    as they are).  The caller brings the words: the manager builds them
+    from a leaf's stored aux, the coordinator packs and moves a range's
+    host mask.  A leaf with no critical element reads no words (they may
+    be None) and runs no K4.  Returns ``(tensor, h2d_bytes)``: the
+    payload's bytes, the only ones moved here.
 
-    Spans on ``tracer`` (the process's by default): ``restore.mask``, the
-    words; ``restore.h2d``, both moves, with ``from_host``'s host copy of a
-    read-only payload; ``restore.scatter``, K4's launch."""
+    Spans on ``tracer`` (the process's by default): ``restore.h2d``, the
+    payload's move, with ``from_host``'s host copy of a read-only payload;
+    ``restore.scatter``, K4's launch."""
     if tracer is None:
         tracer = obs_mod.get_obs().tracer
     shape = tuple(shape)
     n = int(np.prod(shape)) if shape else 1
     payload = np.asarray(payload).reshape(-1)
-    with tracer.span("restore.mask", elements=n):
-        bits = (np.packbits(np.asarray(mask, bool).reshape(-1))
-                if payload.size else np.zeros(0, np.uint8))
-    moved = payload.nbytes + bits.nbytes
     copied = (0 if payload.flags.writeable and payload.flags.c_contiguous
               else payload.nbytes)
-    with tracer.span("restore.h2d", bytes=moved, host_copy_bytes=copied):
+    with tracer.span("restore.h2d", bytes=payload.nbytes,
+                     host_copy_bytes=copied):
         payload_dev = from_host(payload, dtype, device)
-        words_dev = torch.from_numpy(bits).to(device)
     with tracer.span("restore.scatter"):
-        out = mask_ops.mask_scatter(payload_dev, words_dev, n=n, fill=fill,
+        out = mask_ops.mask_scatter(payload_dev, words, n=n, fill=fill,
                                     block=block)
-    return out.reshape(shape), moved
+    return out.reshape(shape), payload.nbytes

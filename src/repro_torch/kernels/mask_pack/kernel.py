@@ -18,12 +18,14 @@ plain versions live in ``ref.py``; ``ops`` picks them only for CPU tensors.
 | ``delta_flags``  | K3 ``kernel.py:delta_blocks_kernel``   | none            |
 | ``mask_scatter`` | K4 ``kernel.py:scatter_blocks_kernel`` | packbits words  |
 | ``unpack_group`` | K5 ``kernel.py:unpack_blocks_kernel``  | packbits words  |
+| ``regions_words``| K8, none (the restore's region table)  | (writes words)  |
 
 K2, K4 and K5 take the mask as the ``np.packbits``-order words that K1
 writes and a checkpoint's bitmap stores, (ceil(N/8),) uint8: 1 bit per
 element read, where a bool mask costs a byte.  K5 takes a list of leaves
 of any widths and rebuilds them in one launch (up to
-:data:`UNPACK_GROUP_LEAVES` leaves a launch).
+:data:`UNPACK_GROUP_LEAVES` leaves a launch).  K8 writes the words of a
+mask stored as a region table, from the table alone.
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ UNPACK_GROUP_LEAVES = 32
 # under a lock.
 LAUNCHES: Dict[str, int] = {"threshold_bitpack": 0, "pack": 0,
                             "delta_flags": 0, "mask_scatter": 0,
-                            "unpack": 0}
+                            "unpack": 0, "regions_words": 0}
 _LAUNCHES_LOCK = threading.Lock()
 
 _P = ctypes.c_void_p
@@ -64,6 +66,7 @@ LIBRARY = CudaLibrary("mask_pack", {
     "mp_mask_scatter": (_P, _I64, _P, _I64, _P, _P, ctypes.c_ulonglong,
                         ctypes.c_ulonglong, _P, ctypes.c_int, _P),
     "mp_unpack_group": (_P, ctypes.c_int, _P),
+    "mp_regions_words": (_P, _I64, _I64, _P, _P),
 })
 
 # What the last build did: {"so": path, "seconds": float, "built": bool,
@@ -303,3 +306,26 @@ def unpack_group(packs: Sequence[torch.Tensor],
                                              stream), "unpack")
             _count("unpack")
     return outs
+
+
+def regions_words(regions: torch.Tensor, n: int) -> torch.Tensor:
+    """K8: a sorted, disjoint ``(R, 2)`` int64 table of ``[start, stop)``
+    runs on the card → the mask's ``np.packbits`` words, ``(ceil(n/8),)``
+    uint8, bits past ``n`` 0: a view of a fresh buffer padded to a multiple
+    of 16 bytes, so it is aligned for K2's, K4's and K5's vector loads."""
+    if not isinstance(regions, torch.Tensor) or regions.device.type != "cuda":
+        dev = getattr(regions, "device", type(regions).__name__)
+        raise RuntimeError(f"regions_words: needs a CUDA tensor, got {dev}")
+    if regions.dtype != torch.int64 or regions.dim() != 2 \
+            or regions.shape[1] != 2 or not regions.is_contiguous():
+        raise ValueError(f"regions_words: needs a contiguous (R, 2) int64 "
+                         f"table, got {tuple(regions.shape)} {regions.dtype}")
+    nbytes = (n + 7) // 8
+    out = torch.empty(-(-nbytes // 16) * 16, dtype=torch.uint8,
+                      device=regions.device)
+    if n:
+        check_launch(load_library().mp_regions_words(
+            regions.data_ptr(), regions.shape[0], n, out.data_ptr(),
+            stream_of(regions)), "regions_words")
+        _count("regions_words")
+    return out[:nbytes]

@@ -25,7 +25,9 @@ with ``fill`` at uncritical positions.  ``delta_encode`` (K3) compares
 the current and base payloads as raw bytes per chunk on device and moves
 only changed chunks D2H.
 ``threshold_bitpack`` (K1) turns scrutiny magnitudes into bit-packed
-masks on device.
+masks on device.  ``regions_words`` (K8) writes the words of a mask stored
+as a region table on the table's device: a restore sends the table H2D
+(16 B a run), not the words, and no host widens it to a mask.
 
 Dispatch rule: a tensor on the card goes to its CUDA kernel (``kernel``)
 or the call raises; a tensor on the CPU goes to the plain version
@@ -49,8 +51,8 @@ from repro_torch.kernels.mask_pack.ref import (BITPACK_BLOCK, BLOCK,
 
 __all__ = ["DELTA_CHUNK_BYTES", "as_bytes", "delta_encode",
            "expand_mask_bits", "mask_scatter", "mask_to_words", "pack",
-           "pack_group", "segment_words", "threshold_bitpack", "unpack",
-           "unpack_group"]
+           "pack_group", "regions_words", "segment_words",
+           "threshold_bitpack", "unpack", "unpack_group"]
 
 # Chunk granularity of the delta format, in bytes — a multiple of every
 # leaf itemsize so chunks never split an element.  The host encoder
@@ -229,6 +231,21 @@ def threshold_bitpack(mag: torch.Tensor, tol=0.0, *,
     if not card:
         return ref.bitpack_ref(mag, tol, block)
     return K.bitpack(mag.contiguous(), tol)
+
+
+def regions_words(regions: torch.Tensor, *, n: int) -> torch.Tensor:
+    """K8: a region table, ``(R, 2)`` int64 ``[start, stop)`` runs, sorted,
+    disjoint and within ``[0, n]`` (what a checkpoint's ``regions`` aux
+    stores) → the mask's ``np.packbits`` words, ``(ceil(n/8),)`` uint8 on
+    the table's device, tail bits 0: ``np.packbits(regions_to_mask(...))``
+    with no element-wide mask on the way."""
+    regions = regions.reshape(-1, 2)
+    if regions.dtype != torch.int64:
+        raise TypeError(f"regions_words: the table is int64, not "
+                        f"{regions.dtype}")
+    if not _on_card(regions):
+        return ref.regions_words_ref(regions, n)
+    return K.regions_words(regions.contiguous(), n)
 
 
 # --------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the five mask_pack kernels.
+"""Plain PyTorch versions of the mask_pack kernels (K1-K5, K8).
 
 Each function computes exactly what its CUDA kernel in ``kernel.py``
 computes, on tensors of any device: ``ops`` uses them for tensors that lie
@@ -47,6 +47,43 @@ def expand_mask_bits(bits: torch.Tensor, *, n: int) -> torch.Tensor:
     shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=bits.device)
     x = (bits.reshape(-1, 1) >> shifts) & 1
     return x.reshape(-1)[:n].to(torch.bool)
+
+
+def regions_words_ref(regions: torch.Tensor, n: int) -> torch.Tensor:
+    """K8: a sorted, disjoint ``(R, 2)`` table of ``[start, stop)`` runs →
+    the words of their mask, ``np.packbits(regions_to_mask(regions, n))``,
+    (ceil(n/8),) uint8 on the table's device, bits past ``n`` 0.
+
+    Works on bytes, never on elements: the whole bytes of every run are
+    set by a running sum over the bytes (+1 at a run's first whole byte, -1
+    past its last), and the partial bytes at a run's two ends are added on.
+    The runs are disjoint, so their bits in a shared byte are too, and a
+    sum of them is their OR."""
+    nbytes = (n + 7) // 8
+    dev = regions.device
+    r = regions.reshape(-1, 2).to(torch.int64)
+    s, e = r[:, 0], r[:, 1].clamp(max=n)
+    keep = e > s
+    s, e = s[keep], e[keep]
+    fb, fe = (s + 7) // 8, e // 8            # whole bytes [fb, fe)
+    whole = fb < fe
+    delta = torch.zeros(nbytes + 1, dtype=torch.int32, device=dev)
+    one = torch.ones(int(whole.sum()), dtype=torch.int32, device=dev)
+    delta.index_add_(0, fb[whole], one)
+    delta.index_add_(0, fe[whole], -one)
+    full = torch.cumsum(delta[:nbytes], 0, dtype=torch.int32) > 0
+    hb, tb = s // 8, (e - 1) // 8
+    head = (1 << (8 - s % 8)) - 1            # bits from s to its byte's end
+    tail = 0xFF & ~((1 << (7 - (e - 1) % 8)) - 1)   # bits up to e - 1
+    one_byte = (hb == tb) & ~whole
+    split = hb != tb
+    at_head = split & (s % 8 != 0)
+    at_tail = split & (e % 8 != 0)
+    part = torch.zeros(nbytes, dtype=torch.int32, device=dev)
+    part.index_add_(0, hb[one_byte], (head & tail)[one_byte].to(torch.int32))
+    part.index_add_(0, hb[at_head], head[at_head].to(torch.int32))
+    part.index_add_(0, tb[at_tail], tail[at_tail].to(torch.int32))
+    return torch.where(full, 0xFF, part).to(torch.uint8)
 
 
 def mask_to_words(mask: torch.Tensor) -> torch.Tensor:

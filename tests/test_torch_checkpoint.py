@@ -491,11 +491,14 @@ def test_single_device_sharding_matches_reference(dtype, frac):
     out_r, h_r = r_sh.scatter_sharded_payload(
         np.asarray(p_r), m, leaf_np.shape, leaf_np.dtype, fill=1,
         use_kernel=False)
-    out_t, h_t = t_sh.scatter_sharded_payload(p_t, m, leaf_np.shape,
+    words = torch.from_numpy(np.packbits(m.reshape(-1)))
+    out_t, h_t = t_sh.scatter_sharded_payload(p_t, words, leaf_np.shape,
                                               str(leaf_np.dtype), "cpu",
                                               fill=1)
-    # with no critical element the port moves no mask words (the
-    # reference moves its whole bitmap)
+    # the port's scatter moves the payload, its caller the words; with no
+    # critical element neither moves mask words (the reference moves its
+    # whole bitmap)
     assert tuple(out_t.shape) == leaf_np.shape
-    assert h_t == (h_r if m.any() else 0)
+    assert h_t == p_t.nbytes
+    assert h_t + words.numel() == h_r if m.any() else h_t == 0
     assert to_host(out_t).tobytes() == np.asarray(out_r).tobytes()

@@ -1,4 +1,4 @@
-"""The port's mask_pack ops (K1-K5) on the CPU against the reference.
+"""The port's mask_pack ops (K1-K5, K8) on the CPU against the reference.
 
 On the CPU every op runs its kernel's plain version; the same inputs, made
 by numpy from a seed, go through ``repro.kernels.mask_pack.ops`` with
@@ -16,11 +16,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
+from repro.core.regions import mask_to_regions as reference_regions
 from repro.kernels.mask_pack import kernel as RK
 from repro.kernels.mask_pack import ops as R
 from repro_torch._tensors import to_host
-from repro_torch.convert import state_from_numpy
+from repro_torch.convert import report_from_masks, state_from_numpy
+from repro_torch.core.regions import mask_to_regions, regions_to_mask
 from repro_torch.kernels.mask_pack import ops as T
 
 # Small shapes: one intra-op thread each leaves the cores to the other
@@ -309,7 +313,7 @@ def _stand_in_kernels(monkeypatch, calls):
 
     def bits(words, n):
         assert words.dtype == torch.uint8 and words.shape == ((n + 7) // 8,)
-        return torch.from_numpy(np.unpackbits(words.numpy(), count=n)
+        return torch.from_numpy(_UNPACKBITS(words.numpy(), count=n)
                                 .astype(bool))
 
     def pack_into(flat, words, dst, *, tiled):
@@ -333,11 +337,22 @@ def _stand_in_kernels(monkeypatch, calls):
                                       ref.fill_tensor(fill, p.dtype, "cpu"))
                 for p, w, n in zip(packs, words, ns)]
 
+    def regions_words(regions, n):
+        calls.append("regions_words")
+        assert regions.dtype == torch.int64 and regions.shape[1:] == (2,)
+        return torch.from_numpy(np.packbits(regions_to_mask(
+            regions.numpy(), n)))
+
     monkeypatch.setattr(T, "_on_card", lambda *ts: True)
     monkeypatch.setattr(K, "pack_into", pack_into)
     monkeypatch.setattr(K, "mask_scatter", mask_scatter)
     monkeypatch.setattr(K, "unpack_group", unpack_group)
+    monkeypatch.setattr(K, "regions_words", regions_words)
     monkeypatch.setattr(ref, "expand_mask_bits", _widened)
+
+
+# the stand-ins' own, kept from tests that make np.unpackbits raise
+_UNPACKBITS = np.unpackbits
 
 
 def _widened(*args, **kwargs):
@@ -388,7 +403,9 @@ def test_save_and_device_restore_never_widen_the_mask(tmp_path, monkeypatch,
         assert _b(got[k]) == _b(want[k]), k
     assert _b(got["w"]) == _b(torch.where(sel, state["w"], 0.0))
     if route == "kernel":
-        assert calls == ["pack", "pack", "mask_scatter", "mask_scatter"]
+        # "h" is stored as one run: K8 writes its words
+        assert calls == ["pack", "pack", "regions_words", "mask_scatter",
+                         "mask_scatter"]
 
 
 @pytest.mark.parametrize("route", ["plain", "kernel"])
@@ -414,6 +431,150 @@ def test_npb_restart_never_widens_the_mask(monkeypatch, route):
     assert verify_restart(bench, rep)
     if route == "kernel":
         assert calls == ["pack"] * len(rep.leaves) + ["unpack_group"]
+
+
+# --------------------------------------------------------------------------
+# K8: the words of a stored region table
+# --------------------------------------------------------------------------
+
+def _runs(*pairs):
+    return np.asarray(pairs, np.int64).reshape(-1, 2)
+
+
+def _fragmented(n, seed):
+    """Thousands of runs: a random mask's, every third one split into two
+    adjacent runs (which ``mask_to_regions`` never writes)."""
+    runs = []
+    for i, (a, b) in enumerate(mask_to_regions(
+            np.random.RandomState(seed).rand(n) < 0.5)):
+        cut = (a + b) // 2
+        runs += [(a, cut), (cut, b)] if i % 3 == 0 and cut > a else [(a, b)]
+    return _runs(*runs)
+
+
+REGION_CASES = {
+    "empty": (_runs(), 100),
+    "inside_one_byte": (_runs((2, 5)), 100),
+    "mid_byte_ends": (_runs((3, 21), (35, 64), (65, 72), (75, 77)), 100),
+    "whole_bytes": (_runs((8, 16), (24, 40)), 64),
+    "adjacent": (_runs((0, 3), (3, 11), (11, 16), (16, 17)), 40),
+    "ends_at_n": (_runs((5, 90), (93, 101)), 101),
+    "n_not_a_multiple_of_8": (_runs((0, 1), (6, 13)), 13),
+    "fragmented": (_fragmented(20011, 0), 20011),
+    "fragmented_large": (_fragmented(200003, 1), 200003),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REGION_CASES))
+def test_regions_words_match_packbits(case):
+    """K8's plain version gives ``np.packbits(regions_to_mask(r, n))``
+    byte for byte."""
+    r, n = REGION_CASES[case]
+    if case.startswith("fragmented"):
+        assert len(r) >= 1000
+    got = T.regions_words(torch.from_numpy(r), n=n)
+    assert got.dtype == torch.uint8 and got.shape == ((n + 7) // 8,)
+    assert _b(got) == np.packbits(regions_to_mask(r, n)).tobytes()
+
+
+
+@given(st.lists(st.booleans(), min_size=0, max_size=2000))
+@settings(max_examples=200, deadline=None)
+def test_region_table_words_match_packbits(bits):
+    """K8's plain version writes the words of the reference's region table
+    (``repro.core.regions.mask_to_regions``) from the runs alone, byte for
+    byte ``np.packbits`` of the mask they encode."""
+    mask = np.array(bits, dtype=bool)
+    words = T.regions_words(torch.from_numpy(reference_regions(mask)),
+                            n=mask.size)
+    assert _b(words) == np.packbits(mask).tobytes()
+
+def _no_host_mask(*args, **kwargs):
+    raise AssertionError("a mask was rebuilt on the host")
+
+
+@pytest.fixture
+def obs_on():
+    """The registry counts only while obs is on."""
+    from repro_torch import obs
+    obs.reset()
+    obs.enable()
+    yield obs.get_obs()
+    obs.disable()
+    obs.reset()
+
+
+@pytest.mark.parametrize("route", ["plain", "kernel"])
+def test_device_restore_takes_the_words_from_the_stored_aux(
+        tmp_path, monkeypatch, obs_on, route):
+    """A device-mode restore of a leaf stored as a region table and one
+    stored as a bitmap: the table's words come from K8 (its plain version
+    on the CPU), the bitmap's aux is sent as the words, and neither goes
+    through ``regions_to_mask`` or ``np.unpackbits``.  The tensors are the
+    host restore's, bit for bit; ``mask_words`` and the registry count
+    each way."""
+    from repro_torch import CheckpointManager, Level
+    from repro_torch.checkpoint import packing
+    from repro_torch.checkpoint.store import read_manifest
+    from repro_torch.core import regions
+
+    rng = np.random.RandomState(27)
+    n = 4099
+    np_state = {"kv": rng.randn(n).astype(np.float32),
+                "w": rng.randn(n).astype(np.float32)}
+    kv = np.zeros(n, bool)
+    kv[:1003] = kv[2005:3001] = True
+    masks = {"kv": kv, "w": rng.rand(n) < 0.3}
+    state = state_from_numpy(np_state, "cpu")
+    like = {k: torch.ones_like(v) for k, v in state.items()}
+    with CheckpointManager([Level(str(tmp_path), keep_n=1)],
+                           scrutiny_fn=lambda s: report_from_masks(masks, s),
+                           device="cpu") as mgr:
+        mgr.save(1, state, block=True)
+        enc = {e["name"]: e["encoding"]
+               for e in read_manifest(str(tmp_path), 1)["leaves"]}
+        assert enc == {"kv": "regions", "w": "bitmap"}
+        _, want = mgr.restore(like, fill=7, mode="host")
+        calls = []
+        if route == "kernel":
+            _stand_in_kernels(monkeypatch, calls)
+        for mod in (packing, regions):
+            monkeypatch.setattr(mod, "regions_to_mask", _no_host_mask)
+        monkeypatch.setattr(np, "unpackbits", _no_host_mask)
+        before = mgr.obs.registry.to_dict()["counters"]
+        _, got = mgr.restore(like, fill=7, mode="device")
+        after = mgr.obs.registry.to_dict()["counters"]
+        stats = mgr.last_restore_stats
+    for k, m in masks.items():
+        assert _b(got[k]) == _b(want[k]), k
+        assert _b(got[k]) == np.where(m, np_state[k], 7).astype(
+            np.float32).tobytes(), k
+    if route == "kernel":
+        assert calls == ["regions_words", "mask_scatter", "mask_scatter"]
+    assert stats["device_leaves"] == 2
+    assert stats["mask_words"] == {"regions_on_card": 1, "bitmap_aux": 1}
+    for key in ("restore.words_from_regions", "restore.words_from_bitmap"):
+        assert after[key] - before.get(key, 0) == 1, key
+    # the table crossed (2 runs, 16 B each), not the words
+    assert stats["h2d_bytes"] == 4 * int(sum(m.sum() for m in masks.values())
+                                         ) + 2 * 16 + (n + 7) // 8
+
+
+@pytest.mark.parametrize("table", [_runs((5, 3)), _runs((0, 9), (8, 12)),
+                                   _runs((3, 9), (0, 2)), _runs((90, 101))],
+                         ids=["inverted", "overlapping", "unsorted",
+                              "past_n"])
+def test_device_restore_refuses_a_malformed_region_table(tmp_path, table):
+    """A region table read back from a step is checked on the host before
+    K8 takes it (K8 binary-searches the runs' stops)."""
+    from repro_torch.checkpoint import manager
+    from repro_torch.checkpoint.packing import PackedLeaf
+
+    leaf = PackedLeaf(name="x", shape=(100,), dtype="float32",
+                      encoding="regions", aux=table.tobytes(),
+                      num_regions=len(table), payload=b"", checksum=0)
+    with pytest.raises(ValueError, match="region table"):
+        manager._leaf_words(leaf, 100, "cpu")
 
 
 # --------------------------------------------------------------------------

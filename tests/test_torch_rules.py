@@ -205,13 +205,14 @@ def _fa_backward_call():
                                8, torch.tensor(0.0))),
     (K, lambda: K.unpack_group([torch.ones(512)],
                                [torch.ones(1, dtype=torch.uint8)], [8])),
+    (K, lambda: K.regions_words(torch.zeros(1, 2, dtype=torch.int64), 8)),
     (FK, _fa_call),
     (FK, _fa_backward_call),
     (LK, lambda: LK.lru_scan(torch.ones(1, 3, 2), torch.ones(1, 3, 2))),
     (LK, lambda: LK.lru_scan_backward(torch.ones(1, 3, 2), torch.ones(1, 3, 2),
                                       None, torch.ones(1, 3, 2))),
 ], ids=["bitpack", "pack", "delta_flags", "mask_scatter", "unpack",
-        "flash_attention",
+        "regions_words", "flash_attention",
         "flash_attention_backward", "lru_scan", "lru_scan_backward"])
 def test_kernel_wrappers_refuse_host_tensors(mod, call):
     before = dict(mod.LAUNCHES)
@@ -229,8 +230,9 @@ def test_kernel_wrappers_refuse_host_tensors(mod, call):
     lambda t: ops.unpack(t.reshape(1, 8), torch.ones(1, dtype=torch.uint8,
                                                      device="meta"),
                          n=8, block=8),
+    lambda t: ops.regions_words(t.to(torch.int64).reshape(-1, 2), n=8),
 ], ids=["threshold_bitpack", "pack", "mask_scatter", "delta_encode",
-        "unpack"])
+        "unpack", "regions_words"])
 def test_ops_raise_on_other_devices(call):
     with pytest.raises(RuntimeError, match="mask_pack"):
         call(torch.ones(8, device="meta"))
@@ -266,6 +268,7 @@ def test_plain_versions_count_no_launches():
     ops.unpack(ops.pack(x, w)[0], w, n=3000)
     ops.unpack_group([ops.pack(x, w)[0], ops.pack(x[:7], w[:1])[0]],
                      [w, w[:1]], [3000, 7])
+    ops.regions_words(torch.tensor([[3, 700], [900, 2999]]), n=3000)
     q = x[:2400].reshape(1, 20, 4, 30)
     live = q.clone().requires_grad_()
     fa_ops.flash_attention(live, q[:, :, :2], q[:, :, :2], window=5,
@@ -285,7 +288,7 @@ def test_npb_path_on_the_cpu_counts_no_launches():
     assert verify_restart(bench, bench.scrutinize())
     assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0)
     assert set(K.LAUNCHES) == {"threshold_bitpack", "pack", "delta_flags",
-                               "mask_scatter", "unpack"}
+                               "mask_scatter", "unpack", "regions_words"}
 
 
 def test_flash_attention_raises_on_other_devices():
@@ -420,6 +423,45 @@ def test_pack_and_scatter_from_words_on_the_card(card, dtype, frac, n):
                     ops.mask_scatter(pay[head.shape[0]:], words, n=n,
                                      fill=fill),
                     ref.mask_scatter_ref(pay_r, m, fill))
+
+
+def _card_region_table(case):
+    """(table, n): ``cell``, a (32, 4, 2048, 8, 128) cache leaf of the
+    restore cell with one run a (layer, batch) row, its first 1027
+    positions; ``fragmented``, thousands of runs of every length, some
+    adjacent; ``edges``, runs that start and end mid-byte, end at n, and
+    n not a multiple of 8."""
+    if case == "cell":
+        n, rows = 32 * 4 * 2048 * 8 * 128, 32 * 4
+        starts = np.arange(rows, dtype=np.int64) * (n // rows)
+        return np.stack([starts, starts + 1027 * 8 * 128], 1), n
+    if case == "fragmented":
+        n = 3_000_017
+        rng = np.random.RandomState(8)
+        cuts = np.unique(rng.randint(0, n, 40_000))
+        r = np.stack([cuts[:-1], cuts[1:]], 1)
+        keep = rng.rand(len(r)) < 0.6          # touching runs stay adjacent
+        return np.ascontiguousarray(r[keep]).astype(np.int64), n
+    return np.array([[0, 1], [3, 5], [6, 17], [17, 120], [128, 129],
+                     [131, 1000], [1003, 1005]], np.int64), 1005
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["cell", "fragmented", "edges"])
+def test_regions_words_match_plain_version_on_the_card(card, case):
+    """K8 against its plain version and ``np.packbits(regions_to_mask)``,
+    byte for byte, one launch, its words 16-byte aligned."""
+    from repro_torch.core.regions import regions_to_mask
+    r, n = _card_region_table(case)
+    table = torch.from_numpy(r).to(card)
+    before = K.LAUNCHES["regions_words"]
+    w = ops.regions_words(table, n=n)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["regions_words"] == before + 1
+    assert w.shape == ((n + 7) // 8,) and w.data_ptr() % 16 == 0
+    assert torch.equal(w, ref.regions_words_ref(table, n))
+    assert w.cpu().numpy().tobytes() == \
+        np.packbits(regions_to_mask(r, n)).tobytes()
 
 
 @pytest.mark.gpu
