@@ -1166,17 +1166,20 @@ class CheckpointManager:
         io_stats = io_stats or {}
         parity = int(io_stats.get("parity_bytes", 0))
         read = int(io_stats.get("bytes_read", 0))
+        superseded = int(io_stats.get("superseded_bytes", 0))
         self.last_restore_stats = self.obs.registry.publish("restore", {
             "step": step, "mode": mode, "h2d_bytes": int(h2d),
             "full_bytes": int(full), "device_leaves": device_leaves,
             "missing_leaves": missing, "skipped": skipped,
-            "bytes_read": read, "mask_words": mask_words,
+            "bytes_read": read, "superseded_bytes": superseded,
+            "mask_words": mask_words,
             # bytes served by the XOR parity rebuild vs plain reads
             "level_bytes": {"l3_parity": parity, "l4_store": read - parity},
             "resilience_level": "l3_parity" if parity else "l4_store"})
         reg = self.obs.registry
         reg.counter("restore.h2d_bytes").inc(int(h2d))
         reg.counter("restore.bytes_read").inc(read)
+        reg.counter("restore.superseded_bytes").inc(superseded)
         reg.counter("restore.words_from_regions").inc(
             mask_words["regions_on_card"])
         reg.counter("restore.words_from_bitmap").inc(

@@ -925,9 +925,12 @@ def segment_mask(entry: Dict[str, Any], seg_n: int) -> Optional[np.ndarray]:
                      f"non-base encoding {enc!r}")
 
 
-def _apply_chain_entry(key, e, raw, s, payloads, meta) -> None:
+def _apply_chain_entry(key, e, raw, s, payloads, meta) -> int:
     """Fold one (crc-verified) manifest entry into the chain-walk state:
-    base payloads replace, deltas patch in place."""
+    base payloads replace, deltas patch in place.  Returns the bytes of
+    the walk's earlier reads that the entry writes over (a delta's patch,
+    every byte of which lands on a byte read before; a payload replaced
+    whole)."""
     if e["encoding"] == "delta":
         if key not in payloads:
             raise IOError(f"delta for leaf {e['name']} at step {s} "
@@ -939,9 +942,11 @@ def _apply_chain_entry(key, e, raw, s, payloads, meta) -> None:
                 f"{e['total_bytes']} bytes; base has {buf.size}")
         idx = np.frombuffer(base64.b64decode(e["aux"]), np.int32)
         apply_delta(buf, idx, raw, int(e["chunk_bytes"]))
-    else:
-        payloads[key] = np.frombuffer(raw, np.uint8).copy()
-        meta[key] = e
+        return len(raw)
+    replaced = payloads[key].size if key in payloads else 0
+    payloads[key] = np.frombuffer(raw, np.uint8).copy()
+    meta[key] = e
+    return replaced
 
 
 def _merge_segments(name: str, shape, dtype: str,
@@ -987,7 +992,9 @@ def load_checkpoint_raw(root: str, step: Optional[int] = None,
     ``io_stats``: optional dict accumulating the readers' I/O accounting
     (``bytes_read`` / ``parity_bytes`` / ``parity_rebuild_bytes``) — the
     resilience-level report uses it to attribute restore bytes to the L3
-    parity level vs plain L4 store reads.
+    parity level vs plain L4 store reads — and ``superseded_bytes``: the
+    bytes read that a later entry of the same walk wrote over (a delta
+    patch, a payload replaced), read for nothing.
     """
     if step is None:
         # same visibility rule as latest(): an uncommitted coordinated
@@ -1006,6 +1013,7 @@ def load_checkpoint_raw(root: str, step: Optional[int] = None,
     meta: Dict[Tuple, Dict[str, Any]] = {}
     leafinfo: Dict[str, Dict[str, Any]] = {}
     order: List[str] = []
+    superseded = 0
     for s in todo:
         m = manifest if s == step else read_manifest(root, s)
         d = os.path.join(root, f"step_{s}")
@@ -1026,20 +1034,24 @@ def load_checkpoint_raw(root: str, step: Optional[int] = None,
                                 f"[{seg['start']}, {seg['stop']}) at step "
                                 f"{s}")
                         key = (name, int(seg["start"]), int(seg["stop"]))
-                        _apply_chain_entry(key, dict(seg, name=name), raw, s,
-                                           payloads, meta)
+                        superseded += _apply_chain_entry(
+                            key, dict(seg, name=name), raw, s, payloads, meta)
                     continue
                 raw = reader.read(e)
                 if zlib.crc32(raw) != e["checksum"]:
                     raise IOError(f"checksum mismatch for leaf {name} "
                                   f"at step {s}")
-                _apply_chain_entry((name,), e, raw, s, payloads, meta)
+                superseded += _apply_chain_entry((name,), e, raw, s,
+                                                 payloads, meta)
         finally:
             if io_stats is not None:
                 for k, v in reader.stats.items():
                     io_stats[k] = io_stats.get(k, 0) + v
             reader.close()
 
+    if io_stats is not None:
+        io_stats["superseded_bytes"] = (io_stats.get("superseded_bytes", 0)
+                                        + superseded)
     by_name: Dict[str, List[Tuple[Tuple, Dict[str, Any], np.ndarray]]] = {}
     for key, buf in payloads.items():
         if key not in meta:

@@ -82,6 +82,17 @@ class ArchConfig:
     # attention archs), with the reason recorded in DESIGN.md.
     skip_shapes: Tuple[str, ...] = ()
 
+    # The fields of ``PortArchConfig``, which the model reads for every
+    # architecture: here class attributes holding the defaults, so that an
+    # ArchConfig's fields (and ``dataclasses.asdict``) stay the reference's.
+    mamba = None                    # Mamba2Config of the 'M' layers
+    rope = True                     # False: no positional encoding (NoPE)
+    attn_scale = None               # None: head_dim ** -0.5
+    embed_mult = 1.0                # muP: embeddings times this
+    residual_mult = 1.0             # muP: each residual branch times this
+    logits_div = 1.0                # muP: logits over this
+    norm_eps = 1e-6                 # RMSNorm / LayerNorm epsilon
+
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim if self.head_dim is not None else self.d_model // self.n_heads
@@ -130,3 +141,50 @@ class ArchConfig:
             fsdp=False,
             remat=False,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class Mamba2Config:
+    """Mamba-2 mixer widths (``models/mamba2.py``)."""
+    n_heads: int = 64
+    head_dim: int = 64
+    d_state: int = 128
+    n_groups: int = 1
+    conv_width: int = 4
+    chunk: int = 256               # SSD scan chunk (prefill, training)
+
+    @property
+    def d_inner(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @property
+    def conv_dim(self) -> int:
+        return self.d_inner + 2 * self.n_groups * self.d_state
+
+
+@dataclasses.dataclass(frozen=True)
+class PortArchConfig(ArchConfig):
+    """An architecture only the port runs (``configs.port_only_arch_names``):
+    ``ArchConfig`` and the fields the reference's has no counterpart of.
+    Layer flavour ``'M'`` is a Mamba-2 mixer (``mamba``)."""
+    mamba: Optional[Mamba2Config] = None
+    rope: bool = True
+    attn_scale: Optional[float] = None
+    embed_mult: float = 1.0
+    residual_mult: float = 1.0
+    logits_div: float = 1.0
+    norm_eps: float = 1e-6
+
+    def reduced(self) -> "PortArchConfig":
+        """``ArchConfig.reduced``, keeping one whole period of the layer
+        pattern; the Mamba-2 widths cut too (chunk 8, so that a short
+        prompt spans several chunks)."""
+        mamba = None
+        if self.mamba is not None:
+            mamba = Mamba2Config(n_heads=4, head_dim=16, d_state=16,
+                                 n_groups=self.mamba.n_groups,
+                                 conv_width=self.mamba.conv_width, chunk=8)
+        return dataclasses.replace(
+            super().reduced(),
+            n_layers=min(self.n_layers, max(4, len(self.layer_pattern))),
+            mamba=mamba)

@@ -122,6 +122,13 @@ def _dispatch_attend(q, k, v, window, causal, scale, attn_cap):
 # GQA layer entry points
 # --------------------------------------------------------------------------
 
+def scale_of(cfg) -> float:
+    """The scores' scale: the configuration's, else 1/sqrt(head_dim)."""
+    if cfg.attn_scale is not None:
+        return cfg.attn_scale
+    return cfg.resolved_head_dim ** -0.5
+
+
 def _project_qkv(cfg, p, x, positions):
     dt = x.dtype
     B, T, _ = x.shape
@@ -141,7 +148,7 @@ def _project_qkv(cfg, p, x, positions):
                 else positions[..., None].expand(B, T, 3))
         q = apply_mrope(q, pos3, cfg.rope_theta)
         k = apply_mrope(k, pos3, cfg.rope_theta)
-    else:
+    elif cfg.rope:              # else NoPE: positions reach only the mask
         pos = _text_positions(positions)
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
@@ -156,8 +163,8 @@ def _text_positions(positions: torch.Tensor) -> torch.Tensor:
 def attention_train(cfg, p, x, positions, *, window=None, causal=True):
     """Full-sequence self-attention (training / prefill without cache)."""
     q, k, v = _project_qkv(cfg, p, x, positions)
-    o = _dispatch_attend(q, k, v, window, causal,
-                         cfg.resolved_head_dim ** -0.5, cfg.attn_softcap)
+    o = _dispatch_attend(q, k, v, window, causal, scale_of(cfg),
+                         cfg.attn_softcap)
     B, T = x.shape[:2]
     return dot(o.reshape(B, T, -1), p["wo"].to(x.dtype))
 
@@ -209,7 +216,7 @@ def attention_decode(cfg, p, x, cache, pos, *, window=None):
         k_pos = torch.where(ar <= pos, ar, none)
     k_pos = k_pos[None, :].expand(B, S).to(torch.int32)
     o = _attend_full(q, ck, cv, _mask_bias(positions, k_pos, window, True),
-                     cfg.resolved_head_dim ** -0.5, cfg.attn_softcap)
+                     scale_of(cfg), cfg.attn_softcap)
     out = dot(o.reshape(B, 1, -1), p["wo"].to(x.dtype))
     return out, {"k": ck, "v": cv}
 

@@ -143,11 +143,11 @@ def apply_norm(cfg, p, x: torch.Tensor) -> torch.Tensor:
     if cfg.norm == "layernorm":
         mu = xf.mean(-1, keepdim=True)
         var = ((xf - mu) ** 2).mean(-1, keepdim=True)
-        y = (xf - mu) * torch.rsqrt(var + 1e-6)
+        y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
         y = y * p["scale"].float() + p["bias"].float()
     else:  # rmsnorm (gemma-style: scale is a +1 offset)
         var = (xf * xf).mean(-1, keepdim=True)
-        y = xf * torch.rsqrt(var + 1e-6)
+        y = xf * torch.rsqrt(var + cfg.norm_eps)
         y = y * (1.0 + p["scale"].float())
     return y.to(x.dtype)
 

@@ -11,7 +11,10 @@ becomes a Python loop over per-layer views (``_unstack``).
 
 Every architecture of ``configs/`` is served: flavours ``g`` (global) and
 ``l`` (windowed) attention, GQA or MLA (deepseek), ``r`` (RG-LRU), ``m``
-(mLSTM) and ``s`` (sLSTM); a dense FFN, MoE (olmoe, deepseek) or none;
+(mLSTM), ``s`` (sLSTM) and ``M`` (Mamba-2, ``mamba2.py``); a dense FFN,
+MoE (olmoe, deepseek) or none; the muP multipliers of the embeddings, the
+residual branches and the logits (``cfg.embed_mult``, ``residual_mult``,
+``logits_div``: 1 leaves the arithmetic as it is);
 M-RoPE with a patch-embedding prefix (qwen2-vl); and the encoder-decoder
 (whisper: a non-causal encoder over ``frames``, cross attention in every
 decoder block).  Rematerialization (``cfg.remat``, the reference's per-
@@ -42,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import _tree
 from repro_torch._tensors import alloc_device
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec
 from repro_torch.models.layers import (KeptProducts, apply_ffn, apply_norm,
@@ -52,7 +56,7 @@ from repro_torch.models.layers import (KeptProducts, apply_ffn, apply_norm,
 # layer planning
 # --------------------------------------------------------------------------
 
-Kind = Tuple[str, str]  # (flavour: g|l|r|m|s, ffn: d|e|n)
+Kind = Tuple[str, str]  # (flavour: g|l|r|m|s|M, ffn: d|e|n)
 
 
 def layer_kinds(cfg) -> List[Kind]:
@@ -119,7 +123,8 @@ def _init_mixer(cfg, flavour: str, gen, **kw):
     if flavour in ("g", "l"):
         return attn.init_attention(cfg, gen, **kw)
     return {"r": rec.init_rglru, "m": rec.init_mlstm,
-            "s": rec.init_slstm}[flavour](cfg, gen, **kw)
+            "s": rec.init_slstm, "M": mamba2.init_mamba2}[flavour](
+                cfg, gen, **kw)
 
 
 def init_block(cfg, kind: Kind, gen, *, lead: Tuple[int, ...] = (),
@@ -147,6 +152,14 @@ def init_block(cfg, kind: Kind, gen, *, lead: Tuple[int, ...] = (),
     return p
 
 
+def _add_branch(cfg, x, h):
+    """The residual add of one branch: ``x + h``, times the muP residual
+    multiplier where the configuration has one."""
+    if cfg.residual_mult != 1.0:
+        h = h * cfg.residual_mult
+    return x + h
+
+
 def _ffn_half(cfg, p, x, train=False):
     """The FFN (or MoE) residual half → (x, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -158,7 +171,7 @@ def _ffn_half(cfg, p, x, train=False):
             h = apply_ffn(cfg, p["ffn"], h)
         if cfg.post_norm:
             h = apply_norm(cfg, p["norm2_post"], h)
-        x = x + h
+        x = _add_branch(cfg, x, h)
     return x, aux
 
 
@@ -168,7 +181,8 @@ def _cross_half(cfg, p, x, enc_out, kv=None):
     if "cross" not in p:
         return x
     h = apply_norm(cfg, p["norm_x"], x)
-    return x + _cross_attend(cfg, p["cross"], h, enc_out, kv)
+    return _add_branch(cfg, x, _cross_attend(cfg, p["cross"], h, enc_out,
+                                             kv))
 
 
 def _cross_kv(cfg, p, enc_out):
@@ -206,7 +220,7 @@ def _mixer_train(cfg, kind, p, x, positions):
         window = cfg.window if fl == "l" else None
         return attn.attention_train(cfg, p, x, positions, window=window)
     return {"r": rec.rglru_train, "m": rec.mlstm_train,
-            "s": rec.slstm_train}[fl](cfg, p, x)
+            "s": rec.slstm_train, "M": mamba2.mamba2_train}[fl](cfg, p, x)
 
 
 def apply_block_train(cfg, kind, p, x, positions, enc_out=None,
@@ -216,17 +230,18 @@ def apply_block_train(cfg, kind, p, x, positions, enc_out=None,
     h = _mixer_train(cfg, kind, p["mixer"], h, positions)
     if cfg.post_norm:
         h = apply_norm(cfg, p["norm1_post"], h)
-    return _ffn_half(cfg, p, _cross_half(cfg, p, x + h, enc_out), train)
+    return _ffn_half(cfg, p, _cross_half(cfg, p, _add_branch(cfg, x, h),
+                                         enc_out), train)
 
 
 # --- decode ----------------------------------------------------------------
 
 _STATE_INIT = {"r": rec.rglru_init_state, "m": rec.mlstm_init_state,
-               "s": rec.slstm_init_state}
+               "s": rec.slstm_init_state, "M": mamba2.mamba2_init_state}
 _DECODE = {"r": rec.rglru_decode, "m": rec.mlstm_decode,
-           "s": rec.slstm_decode}
+           "s": rec.slstm_decode, "M": mamba2.mamba2_decode}
 _PREFILL = {"r": rec.rglru_prefill, "m": rec.mlstm_prefill,
-            "s": rec.slstm_prefill}
+            "s": rec.slstm_prefill, "M": mamba2.mamba2_prefill}
 
 
 def init_layer_cache(cfg, kind: Kind, batch: int, max_len: int, *,
@@ -270,7 +285,7 @@ def apply_block_decode(cfg, kind, p, x, cache, pos):
     if cfg.post_norm:
         h = apply_norm(cfg, p["norm1_post"], h)
     kv = (cache["xk"], cache["xv"]) if "cross" in p else None
-    x = _cross_half(cfg, p, x + h, None, kv)
+    x = _cross_half(cfg, p, _add_branch(cfg, x, h), None, kv)
     return _ffn_half(cfg, p, x)[0], new_cache
 
 
@@ -323,7 +338,8 @@ def compute_params(cfg, params) -> Dict[str, Any]:
 
 # Recurrent parameters the model reads in f32 (``.float()``), not in the
 # compute dtype: compute_params keeps them as they are.
-_F32_AT_USE = frozenset({"lambda", "rz", "ri", "rf", "ro"})
+_F32_AT_USE = frozenset({"lambda", "rz", "ri", "rf", "ro", "A_log", "D",
+                         "dt_bias"})
 
 
 # --------------------------------------------------------------------------
@@ -335,6 +351,8 @@ def _embed_tokens(cfg, params, tokens):
     if cfg.embed_scale:
         x = x * torch.tensor(float(np.sqrt(cfg.d_model)), dtype=x.dtype,
                              device=x.device)
+    if cfg.embed_mult != 1.0:
+        x = x * cfg.embed_mult
     return x
 
 
@@ -361,6 +379,8 @@ def _input_sequence(cfg, params, batch):
 def lm_head_logits(cfg, params, h):
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = h @ w.to(h.dtype)
+    if cfg.logits_div != 1.0:
+        logits = logits / cfg.logits_div
     return softcap(logits, cfg.logit_softcap)
 
 
@@ -533,7 +553,7 @@ def _prefill_block(cfg, kind, p, x, positions, max_len, enc_out):
     if "cross" in p:
         kv = _cross_kv(cfg, p["cross"], enc_out)
         cache["xk"], cache["xv"] = (t.to(dtype_of(cfg.dtype)) for t in kv)
-    x = _cross_half(cfg, p, x + h, enc_out, kv)
+    x = _cross_half(cfg, p, _add_branch(cfg, x, h), enc_out, kv)
     return _ffn_half(cfg, p, x)[0], cache
 
 
@@ -558,8 +578,7 @@ def _attention_prefill(cfg, fl, p, h, positions, max_len):
     B, T = h.shape[:2]
     dt = dtype_of(cfg.dtype)
     q, k, v = attn._project_qkv(cfg, p, h, positions)
-    o = attn._dispatch_attend(q, k, v, window, True,
-                              cfg.resolved_head_dim ** -0.5,
+    o = attn._dispatch_attend(q, k, v, window, True, attn.scale_of(cfg),
                               cfg.attn_softcap)
     out = dot(o.reshape(B, T, -1), p["wo"].to(h.dtype))
     S = min(window, max_len) if window else max_len
@@ -613,6 +632,18 @@ def decode_step(cfg, params, cache, tokens, pos):
     x = apply_norm(cfg, params["final_norm"], x)
     logits = lm_head_logits(cfg, params, x)
     return logits[:, 0], new_caches
+
+
+def carried_state(cfg, cache) -> Dict[str, Any]:
+    """The segments of ``cache`` that hold Mamba-2 layers: state that every
+    decode step reads whole and hands on, so that a step past any horizon
+    still reads it.  A scrutiny of a few steps' logits alone can find an
+    element of it unread (a C channel that is exactly 0 in those steps
+    leaves its column of the SSM state out of every logit); a scrutiny
+    target that returns it too holds all of it critical."""
+    return {f"seg{si}": cache[f"seg{si}"]
+            for si, (unit, _) in enumerate(plan_segments(layer_kinds(cfg)))
+            if any(kind[0] == "M" for kind in unit)}
 
 
 def count_params(params) -> int:

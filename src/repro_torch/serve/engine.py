@@ -118,6 +118,9 @@ class Engine:
     def resume_fn(self, n_steps: int):
         """(engine state) → decode outputs; the scrutiny target.  Pure:
         ``torch.func.vjp`` differentiates it with respect to the cache.
+        The outputs are the steps' logits and, where the model has
+        Mamba-2 layers, their state after the last step
+        (``model.carried_state``).
 
         The cache enters in f32.  Every value a decode step writes is
         computed in the compute dtype and stored exactly either way, so the
@@ -145,7 +148,11 @@ class Engine:
                 s = {"cache": cache, "pos": s["pos"] + 1,
                      "tokens": _next_tokens(logits)}
                 logits_all.append(logits)
-            return {"logits": torch.stack(logits_all)}
+            out = {"logits": torch.stack(logits_all)}
+            carried = model.carried_state(cfg, s["cache"])
+            if carried:         # Mamba-2 state, read whole past the horizon
+                out["carried"] = carried
+            return out
 
         self._resume_fns[n_steps] = fn
         return fn
