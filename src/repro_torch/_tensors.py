@@ -76,12 +76,22 @@ def to_host(leaf, copy: bool = False) -> np.ndarray:
     return arr.copy() if (copy and not fresh) else arr
 
 
+def host_copy_nbytes(arr: np.ndarray) -> int:
+    """Bytes :func:`from_host` copies on the host before it moves ``arr``:
+    all of a read-only or strided array, none of a writable contiguous
+    one."""
+    arr = np.asarray(arr)
+    return 0 if arr.flags.c_contiguous and arr.flags.writeable \
+        else arr.nbytes
+
+
 def from_host(arr: np.ndarray, name: str,
               device: Union[str, torch.device] = "cpu") -> torch.Tensor:
     """Tensor of dtype ``name`` on ``device`` from a host array holding its
-    values (bf16: uint16 bits)."""
+    values (bf16: uint16 bits).  On the CPU the tensor may share a
+    writable contiguous ``arr``'s memory."""
     arr = np.asarray(arr)
-    if not (arr.flags.c_contiguous and arr.flags.writeable):
+    if host_copy_nbytes(arr):
         arr = arr.copy()
     if str(name) == "bfloat16":
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)

@@ -87,9 +87,9 @@ from repro_torch.checkpoint.levels import (L1_RESIDENT, L2_PARTNER,
                                            partner_of)
 from repro_torch.checkpoint.manager import (CheckpointManager, Level,
                                             _host_snapshot, update_report)
-from repro_torch.checkpoint.packing import (DeltaLeaf, delta_encode_host,
-                                            leaf_mask, packed_leaf_stub,
-                                            unpack_leaf)
+from repro_torch.checkpoint.packing import (DeltaLeaf, check_payload,
+                                            delta_encode_host, leaf_mask,
+                                            packed_leaf_stub, unpack_leaf)
 from repro_torch.checkpoint.pipeline import (BytesSource, ViewSource, as_u8,
                                              fetch_to_host)
 from repro_torch.checkpoint.store import (ALIVE_FILE, ShardReader,
@@ -1531,8 +1531,7 @@ def _chain_pieces(p, targets, row, fill):
         full = unpack_leaf(p, fill=fill).reshape(-1)
         return [(a, b, dev, full[a * row:b * row], None)
                 for a, b, dev in targets]
-    if zlib.crc32(p.payload) != p.checksum:
-        raise IOError(f"checksum mismatch for leaf {p.name}")
+    check_payload(p)
     mask = leaf_mask(p)
     payload = np.frombuffer(p.payload, host_dtype(p.dtype))
     pieces = []

@@ -66,8 +66,11 @@ asynchronous save engine** (port of ``repro.checkpoint.manager``).
   critical payload and the stored mask H2D, and re-expands on device with
   the K4 kernel.  The mask crosses as it is stored: a region table, whose
   words the K8 kernel writes on the device, or a bitmap, which already is
-  the words; no host mask is made.  ``last_restore_stats`` records the
-  H2D bytes and, under ``mask_words``, how many leaves took each way.
+  the words; no host mask is made.  The walk reads each stored byte
+  once, into the buffer that moves H2D (no host copy: ``host_copy_bytes``
+  0).  ``last_restore_stats`` records the H2D bytes, under
+  ``mask_words`` how many leaves took each way, and the walk's
+  ``read_into_bytes``, ``delta_chunks`` and ``delta_runs``.
 - **Retention**: keep_n restorable steps per level + their chain
   dependencies; stale ``.tmp_step_*`` dirs from crashed writers are swept.
 
@@ -93,9 +96,9 @@ import torch
 
 from repro_torch import _tree
 from repro_torch import obs as obs_mod
-from repro_torch._tensors import (check_on, from_host, host_dtype, itemsize,
-                                  leaf_dtype_name, resolve_device, to_host,
-                                  torch_dtype)
+from repro_torch._tensors import (check_on, from_host, host_copy_nbytes,
+                                  host_dtype, itemsize, leaf_dtype_name,
+                                  resolve_device, to_host, torch_dtype)
 from repro_torch.checkpoint.packing import (DeltaLeaf, delta_encode_host,
                                             pack_leaf, packed_leaf_stub,
                                             unpack_leaf)
@@ -1122,6 +1125,7 @@ class CheckpointManager:
         dev = self.device
         tracer = self.obs.tracer
         h2d = 0
+        host_copy = 0
         full = 0
         device_leaves = 0
         mask_words = dict.fromkeys(_WORDS_FROM.values(), 0)
@@ -1143,6 +1147,7 @@ class CheckpointManager:
                     and p.encoding in ("regions", "bitmap")
                     and stored_n == n):
                 payload = np.frombuffer(p.payload, host_dtype(p.dtype))
+                host_copy += host_copy_nbytes(payload)
                 words = None
                 if payload.size:    # no critical element: no mask to send
                     with tracer.span("restore.mask", elements=n,
@@ -1158,6 +1163,7 @@ class CheckpointManager:
             else:                       # host expand (full/tiered leaves)
                 with tracer.span("restore.expand", elements=n):
                     a = unpack_leaf(p, fill=fill)
+                    host_copy += host_copy_nbytes(a)
                     arr = from_host(a.reshape(shape), p.dtype, dev)
                 h2d += a.nbytes
             if p.dtype != like_dtype:
@@ -1167,11 +1173,16 @@ class CheckpointManager:
         parity = int(io_stats.get("parity_bytes", 0))
         read = int(io_stats.get("bytes_read", 0))
         superseded = int(io_stats.get("superseded_bytes", 0))
+        walked = {k: int(io_stats.get(k, 0))
+                  for k in ("read_into_bytes", "delta_chunks", "delta_runs")}
         self.last_restore_stats = self.obs.registry.publish("restore", {
             "step": step, "mode": mode, "h2d_bytes": int(h2d),
             "full_bytes": int(full), "device_leaves": device_leaves,
             "missing_leaves": missing, "skipped": skipped,
             "bytes_read": read, "superseded_bytes": superseded,
+            # the chain walk's reads straight into leaf buffers and its
+            # delta runs; the payload bytes ``from_host`` copied on the host
+            **walked, "host_copy_bytes": int(host_copy),
             "mask_words": mask_words,
             # bytes served by the XOR parity rebuild vs plain reads
             "level_bytes": {"l3_parity": parity, "l4_store": read - parity},
@@ -1180,6 +1191,9 @@ class CheckpointManager:
         reg.counter("restore.h2d_bytes").inc(int(h2d))
         reg.counter("restore.bytes_read").inc(read)
         reg.counter("restore.superseded_bytes").inc(superseded)
+        for k, v in walked.items():
+            reg.counter(f"restore.{k}").inc(v)
+        reg.counter("restore.host_copy_bytes").inc(int(host_copy))
         reg.counter("restore.words_from_regions").inc(
             mask_words["regions_on_card"])
         reg.counter("restore.words_from_bitmap").inc(

@@ -60,8 +60,12 @@ class PackedLeaf:
     encoding: str                      # full | regions | bitmap
     aux: bytes                         # regions int64 pairs or bitmap bits
     num_regions: int
+    # bytes, or the writable buffer a restore's chain walk read it into
     payload: bytes
-    checksum: int
+    # crc32 of the payload; None for a payload a delta chain patched on
+    # the walk, whose every byte was checked against its stored entry as
+    # it was read (a writer works one out)
+    checksum: Optional[int]
     # precision tiers: per-region dtype index into tier_dtypes
     tier_dtypes: Tuple[str, ...] = ()
     region_tiers: bytes = b""          # int8 per region
@@ -337,25 +341,40 @@ def delta_encode_host(curr: np.ndarray, base: np.ndarray,
     return idx, payload
 
 
-def apply_delta(buf: np.ndarray, idx: np.ndarray, payload: bytes,
-                chunk_bytes: int) -> None:
-    """Patch changed chunks into ``buf`` (flat uint8, modified in place).
-
-    Per-chunk slice assignment: chunks are contiguous runs, so no index
-    array is materialized (the payload can be GiB-scale on dense deltas).
-    """
+def delta_runs(idx: np.ndarray, chunk_bytes: int,
+               total_bytes: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Byte ranges ``[starts, ends)`` a delta patches, one per run of
+    consecutive chunk indices in ``idx``, in ``idx``'s order (the order of
+    the delta's payload); the final chunk is clipped to ``total_bytes``.
+    A sparse delta has a run per chunk, a dense one a few long runs."""
     idx = np.asarray(idx, np.int64)
     if idx.size == 0:
-        return
-    starts = idx * chunk_bytes
-    ends = np.minimum(starts + chunk_bytes, buf.size)
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    if int(idx.min()) < 0 or int(idx.max()) * chunk_bytes >= total_bytes:
+        raise IOError(f"delta chunk index outside a payload of "
+                      f"{total_bytes} bytes")
+    brk = np.flatnonzero(idx[1:] != idx[:-1] + 1) + 1
+    starts = idx[np.concatenate([[0], brk])] * chunk_bytes
+    ends = np.minimum((idx[np.concatenate([brk - 1, [idx.size - 1]])] + 1)
+                      * chunk_bytes, total_bytes)
+    return starts, ends
+
+
+def apply_delta(buf, idx: np.ndarray, payload: bytes,
+                chunk_bytes: int) -> None:
+    """Patch changed chunks into ``buf`` (flat uint8 array or bytearray,
+    modified in place): one slice assignment per run of consecutive
+    chunks (``delta_runs``), so no index array is materialized (the
+    payload can be GiB-scale on dense deltas)."""
+    dst = np.frombuffer(buf, np.uint8)
+    starts, ends = delta_runs(idx, chunk_bytes, dst.size)
     pay = np.frombuffer(payload, np.uint8)
-    if int((ends - starts).sum()) != pay.size:
-        raise IOError(f"delta patch length mismatch "
-                      f"({int((ends - starts).sum())} vs {pay.size})")
+    n = int((ends - starts).sum())
+    if n != pay.size:
+        raise IOError(f"delta patch length mismatch ({n} vs {pay.size})")
     off = 0
-    for s, e in zip(starts, ends):
-        buf[s:e] = pay[off:off + e - s]
+    for s, e in zip(starts.tolist(), ends.tolist()):
+        dst[s:e] = pay[off:off + e - s]
         off += e - s
 
 
@@ -371,11 +390,19 @@ def leaf_mask(p: PackedLeaf) -> Optional[np.ndarray]:
     return np.unpackbits(np.frombuffer(p.aux, np.uint8))[:n].astype(bool)
 
 
+def check_payload(p: PackedLeaf) -> None:
+    """Raise ``IOError`` where ``p``'s payload differs from its stored
+    crc32.  A payload a delta chain patched has none to differ from: the
+    walk checked each of its bytes against its entry as it read them, and
+    a crc worked out here could only match itself."""
+    if p.checksum is not None and zlib.crc32(p.payload) != p.checksum:
+        raise IOError(f"checksum mismatch for leaf {p.name}")
+
+
 def unpack_leaf(p: PackedLeaf, fill=0) -> np.ndarray:
     dtype = host_dtype(p.dtype)
     n = int(np.prod(p.shape)) if p.shape else 1
-    if zlib.crc32(p.payload) != p.checksum:
-        raise IOError(f"checksum mismatch for leaf {p.name}")
+    check_payload(p)
     if p.encoding == "full":
         return np.frombuffer(p.payload, dtype=dtype).reshape(p.shape)
 

@@ -56,11 +56,13 @@ one, in apply order (the base first).  Restore walks the chain: the base's
 payload bytes are patched with each delta in order, then unpacked exactly
 like a base checkpoint.  A manifest without a ``chain`` section is a base.
 
-Reads are **streamed per leaf**: the loader seeks to each leaf's
+Reads are **streamed per leaf**: the loader reads each leaf's
 (shard, offset, length) range instead of slurping whole shard blobs, so
 restoring a single leaf (or applying a sparse delta) reads only the bytes
 it needs; a missing shard file falls back to whole-shard XOR
-reconstruction.
+reconstruction.  The chain walk reads each stored byte once: a base entry
+straight into a fresh buffer of its leaf, a delta's runs of chunks
+straight onto that buffer's bytes, each entry crc-checked there.
 """
 
 from __future__ import annotations
@@ -81,7 +83,7 @@ from repro_torch._tensors import (fill_host, from_host, host_dtype, itemsize,
                                   leaf_dtype_name, resolve_device, to_host,
                                   torch_dtype)
 from repro_torch.checkpoint.packing import (DeltaLeaf, PackedLeaf,
-                                            apply_delta, pack_leaf,
+                                            delta_runs, pack_leaf,
                                             pack_leaf_from_payload,
                                             unpack_leaf)
 from repro_torch.checkpoint.pipeline import BytesSource
@@ -291,7 +293,8 @@ def _packed_entry(p: PackedLeaf) -> Dict[str, Any]:
         "encoding": p.encoding,
         "aux": base64.b64encode(p.aux).decode(),
         "num_regions": p.num_regions,
-        "checksum": p.checksum,
+        "checksum": (zlib.crc32(p.payload) if p.checksum is None
+                     else p.checksum),
         "tier_dtypes": list(p.tier_dtypes),
         "region_tiers": base64.b64encode(p.region_tiers).decode(),
     }
@@ -784,28 +787,72 @@ def save_delta_checkpoint(root: str, step: int,
 # Streaming reads
 # --------------------------------------------------------------------------
 
+# buffers a single preadv takes (Linux's IOV_MAX)
+_IOV_MAX = 1024
+
+
+def _pread_full(fd: int, length: int, offset: int) -> bytes:
+    """``length`` bytes at ``offset``; fewer where the file ends first."""
+    parts = []
+    while length:
+        b = os.pread(fd, length, offset)
+        if not b:
+            break
+        parts.append(b)
+        length -= len(b)
+        offset += len(b)
+    return b"".join(parts)
+
+
+def _preadv_full(fd: int, views: Sequence[memoryview],
+                 offset: int) -> bool:
+    """Fill ``views`` in order from the file's bytes at ``offset``, a
+    ``preadv`` per ``_IOV_MAX`` of them; False where the file ends
+    first."""
+    views = [v for v in views if len(v)]
+    i = 0
+    while i < len(views):
+        got = os.preadv(fd, views[i:i + _IOV_MAX], offset)
+        if got == 0:
+            return False
+        offset += got
+        while got:                      # step past what this call filled
+            n = len(views[i])
+            if got < n:
+                views[i] = views[i][got:]
+                break
+            got -= n
+            i += 1
+    return True
+
+
 class ShardReader:
-    """Per-leaf streaming reads over one checkpoint directory: seeks into
-    shard files instead of slurping whole blobs; a missing/short numbered
-    shard falls back to whole-shard partner-XOR reconstruction (cached).
+    """Per-leaf streaming reads over one checkpoint directory: positioned
+    reads into shard files instead of slurping whole blobs; a missing or
+    short numbered shard falls back to whole-shard partner-XOR
+    reconstruction (cached).
 
     Entries carrying a ``file`` key (a coordinated checkpoint's per-host
     shard files) read from that file directly — no parity exists for them.
     ``read_range`` reads a byte sub-range *within* an entry's payload: the
     elastic resharded restore path uses it to fetch only the bytes
-    intersecting its local shards.
+    intersecting its local shards.  ``read_into`` reads an entry straight
+    into the caller's buffers: the chain walk's way of reading each stored
+    byte once.
     """
 
     def __init__(self, d: str, shards: int):
         self.d = d
         self.shards = shards
-        self._handles: Dict[str, Any] = {}
+        self._fds: Dict[str, int] = {}
         self._rebuilt: Dict[int, bytes] = {}
         # I/O accounting for the resilience-level report: bytes served
         # (total), the subset served from XOR-rebuilt shards (the L3
-        # parity level), and the raw disk bytes the rebuilds cost
+        # parity level), the raw disk bytes the rebuilds cost, and the
+        # bytes read from a shard file straight into a caller's buffer
         self.stats: Dict[str, int] = {"bytes_read": 0, "parity_bytes": 0,
-                                      "parity_rebuild_bytes": 0}
+                                      "parity_rebuild_bytes": 0,
+                                      "read_into_bytes": 0}
 
     def __enter__(self):
         return self
@@ -814,9 +861,9 @@ class ShardReader:
         self.close()
 
     def close(self):
-        for f in self._handles.values():
-            f.close()
-        self._handles.clear()
+        for fd in self._fds.values():
+            os.close(fd)
+        self._fds.clear()
 
     def _rebuild(self, k: int) -> bytes:
         if k not in self._rebuilt:
@@ -834,8 +881,39 @@ class ShardReader:
             self.stats["parity_rebuild_bytes"] += len(p) + len(b)
         return self._rebuilt[k]
 
-    def read(self, entry: Dict[str, Any]) -> bytes:
-        return self.read_range(entry, 0, int(entry["length"]))
+    def _source(self, entry: Dict[str, Any]
+                ) -> Tuple[Optional[int], Optional[bytes]]:
+        """Where an entry's bytes come from: ``(fd, None)``, its shard
+        file, or ``(None, blob)``, its numbered shard rebuilt from
+        parity."""
+        fname = entry.get("file")
+        if fname is None:
+            k = int(entry["shard"])
+            if k in self._rebuilt:
+                return None, self._rebuilt[k]
+            fname = f"shard_{k}.bin"
+        if fname not in self._fds:
+            path = os.path.join(self.d, fname)
+            if not os.path.exists(path):
+                return None, self._torn(entry, "missing")
+            self._fds[fname] = os.open(path, os.O_RDONLY)
+        return self._fds[fname], None
+
+    def _torn(self, entry: Dict[str, Any], how: str) -> bytes:
+        """The rebuilt blob of a numbered entry whose shard file is
+        ``how`` (missing or truncated); a coordinated entry's file has no
+        parity, and raises."""
+        fname = entry.get("file")
+        if fname is None:
+            return self._rebuild(int(entry["shard"]))
+        if how == "missing":
+            raise FileNotFoundError(
+                f"shard file {fname} missing in {self.d}")
+        raise IOError(f"shard file {fname} truncated in {self.d}")
+
+    def _served_by_parity(self, length: int) -> None:
+        self.stats["bytes_read"] += length
+        self.stats["parity_bytes"] += length
 
     def read_range(self, entry: Dict[str, Any], start: int,
                    length: int) -> bytes:
@@ -846,38 +924,41 @@ class ShardReader:
             raise ValueError(
                 f"range [{start}, {start + length}) outside entry of "
                 f"{total} bytes for leaf {entry.get('name')}")
-        fname = entry.get("file")
-        numbered = fname is None
+        fd, blob = self._source(entry)
+        if fd is not None:
+            data = _pread_full(fd, length, base + start)
+            if len(data) == length:
+                self.stats["bytes_read"] += length
+                return data
+            blob = self._torn(entry, "truncated")
+        self._served_by_parity(length)
+        return blob[base + start:base + start + length]
 
-        def from_rebuilt(k):
-            self.stats["bytes_read"] += length
-            self.stats["parity_bytes"] += length
-            return self._rebuilt[k][base + start:base + start + length]
-
-        if numbered:
-            k = int(entry["shard"])
-            fname = f"shard_{k}.bin"
-            if k in self._rebuilt:
-                return from_rebuilt(k)
-        if fname not in self._handles:
-            path = os.path.join(self.d, fname)
-            if not os.path.exists(path):
-                if numbered:
-                    self._rebuild(k)
-                    return from_rebuilt(k)
-                raise FileNotFoundError(
-                    f"shard file {fname} missing in {self.d}")
-            self._handles[fname] = open(path, "rb")
-        f = self._handles[fname]
-        f.seek(base + start)
-        data = f.read(length)
-        if len(data) != length:       # truncated shard: try parity rebuild
-            if numbered:
-                self._rebuild(k)
-                return from_rebuilt(k)
-            raise IOError(f"shard file {fname} truncated in {self.d}")
-        self.stats["bytes_read"] += length
-        return data
+    def read_into(self, entry: Dict[str, Any],
+                  views: Sequence[memoryview]) -> None:
+        """Fill ``views``, writable buffers whose lengths add up to the
+        entry's, with its payload in order: from the shard file straight
+        into them (``preadv``), or copied from a shard rebuilt from
+        parity."""
+        base = int(entry["offset"])
+        total = int(entry["length"])
+        if sum(len(v) for v in views) != total:
+            raise ValueError(
+                f"buffers of {sum(len(v) for v in views)} bytes for an "
+                f"entry of {total} bytes for leaf {entry.get('name')}")
+        fd, blob = self._source(entry)
+        if fd is not None:
+            if _preadv_full(fd, views, base):
+                self.stats["bytes_read"] += total
+                self.stats["read_into_bytes"] += total
+                return
+            blob = self._torn(entry, "truncated")
+        src = memoryview(blob)
+        off = base
+        for v in views:
+            v[:] = src[off:off + len(v)]
+            off += len(v)
+        self._served_by_parity(total)
 
 
 def _read_shard(d: str, k: int, shards: int) -> bytes:
@@ -898,12 +979,13 @@ def _read_shard(d: str, k: int, shards: int) -> bytes:
 # Loading
 # --------------------------------------------------------------------------
 
-def _entry_to_packed(e: Dict[str, Any], payload: bytes) -> PackedLeaf:
+def _entry_to_packed(e: Dict[str, Any], payload,
+                     checksum: Optional[int]) -> PackedLeaf:
     return PackedLeaf(
         name=e["name"], shape=tuple(e["shape"]), dtype=e["dtype"],
         encoding=e["encoding"], aux=base64.b64decode(e["aux"]),
         num_regions=e.get("num_regions", 1), payload=payload,
-        checksum=e["checksum"],
+        checksum=checksum,
         tier_dtypes=tuple(e.get("tier_dtypes", ())),
         region_tiers=base64.b64decode(e.get("region_tiers", "")))
 
@@ -925,32 +1007,72 @@ def segment_mask(entry: Dict[str, Any], seg_n: int) -> Optional[np.ndarray]:
                      f"non-base encoding {enc!r}")
 
 
-def _apply_chain_entry(key, e, raw, s, payloads, meta) -> int:
-    """Fold one (crc-verified) manifest entry into the chain-walk state:
-    base payloads replace, deltas patch in place.  Returns the bytes of
-    the walk's earlier reads that the entry writes over (a delta's patch,
-    every byte of which lands on a byte read before; a payload replaced
-    whole)."""
-    if e["encoding"] == "delta":
-        if key not in payloads:
-            raise IOError(f"delta for leaf {e['name']} at step {s} "
-                          f"has no base payload in the chain")
-        buf = payloads[key]
-        if buf.size != int(e["total_bytes"]):
-            raise IOError(
-                f"delta for leaf {e['name']} at step {s} patches "
-                f"{e['total_bytes']} bytes; base has {buf.size}")
-        idx = np.frombuffer(base64.b64decode(e["aux"]), np.int32)
-        apply_delta(buf, idx, raw, int(e["chunk_bytes"]))
-        return len(raw)
-    replaced = payloads[key].size if key in payloads else 0
-    payloads[key] = np.frombuffer(raw, np.uint8).copy()
-    meta[key] = e
-    return replaced
+@dataclasses.dataclass
+class _ChainWalk:
+    """The chain walk's state: each leaf's (or coordinated segment's)
+    buffer, keyed ``(name,)`` or ``(name, start, stop)``; the base entry
+    it was read from; the keys a delta patched; and what the walk
+    counted."""
+    payloads: Dict[Tuple, bytearray] = dataclasses.field(
+        default_factory=dict)
+    meta: Dict[Tuple, Dict[str, Any]] = dataclasses.field(
+        default_factory=dict)
+    patched: set = dataclasses.field(default_factory=set)
+    superseded_bytes: int = 0
+    delta_chunks: int = 0
+    delta_runs: int = 0
+
+    def read(self, reader: ShardReader, key: Tuple, e: Dict[str, Any],
+             s: int) -> None:
+        """Read one manifest entry of step ``s`` into the walk, each of
+        its bytes once: a base entry straight into a fresh buffer, which
+        replaces the leaf's; a delta's runs of chunks straight onto the
+        bytes they patch.  The entry is crc-checked where it landed.
+        Counts the bytes of the walk's earlier reads that the entry writes
+        over (a delta's patch, every byte of which lands on a byte read
+        before; a payload replaced whole)."""
+        where = (f"leaf {e['name']} segment [{key[1]}, {key[2]})"
+                 if len(key) == 3 else f"leaf {e['name']}")
+        if e["encoding"] == "delta":
+            buf = self.payloads.get(key)
+            if buf is None:
+                raise IOError(f"delta for {where} at step {s} has no base "
+                              f"payload in the chain")
+            if len(buf) != int(e["total_bytes"]):
+                raise IOError(
+                    f"delta for {where} at step {s} patches "
+                    f"{e['total_bytes']} bytes; base has {len(buf)}")
+            idx = np.frombuffer(base64.b64decode(e["aux"]), np.int32)
+            starts, ends = delta_runs(idx, int(e["chunk_bytes"]), len(buf))
+            n = int((ends - starts).sum())
+            if n != int(e["length"]):
+                raise IOError(f"delta patch length mismatch for {where} at "
+                              f"step {s} ({n} vs {e['length']})")
+            whole = memoryview(buf)
+            views = [whole[a:b] for a, b in zip(starts.tolist(),
+                                                ends.tolist())]
+            self.patched.add(key)
+            self.delta_chunks += idx.size
+            self.delta_runs += len(views)
+            self.superseded_bytes += n
+        else:
+            buf = bytearray(int(e["length"]))
+            views = [memoryview(buf)]
+            old = self.payloads.get(key)
+            self.superseded_bytes += 0 if old is None else len(old)
+            self.payloads[key] = buf
+            self.meta[key] = e
+            self.patched.discard(key)
+        reader.read_into(e, views)
+        crc = 0
+        for v in views:
+            crc = zlib.crc32(v, crc)
+        if crc != e["checksum"]:
+            raise IOError(f"checksum mismatch for {where} at step {s}")
 
 
 def _merge_segments(name: str, shape, dtype: str,
-                    segs: List[Tuple[Dict[str, Any], np.ndarray]]
+                    segs: List[Tuple[Dict[str, Any], bytearray]]
                     ) -> PackedLeaf:
     """Reassemble a segmented leaf's per-host pieces into one ordinary
     ``PackedLeaf``: payloads concatenate in segment order (segments tile
@@ -966,7 +1088,7 @@ def _merge_segments(name: str, shape, dtype: str,
             lo, hi = int(e["start"]), int(e["stop"])
             sm = segment_mask(e, hi - lo)
             mask[lo:hi] = True if sm is None else sm
-    payload = b"".join(buf.tobytes() for _, buf in segs)
+    payload = b"".join(buf for _, buf in segs)
     return pack_leaf_from_payload(
         name, tuple(shape), dtype, mask,
         np.frombuffer(payload, host_dtype(dtype)))
@@ -986,15 +1108,24 @@ def load_checkpoint_raw(root: str, step: Optional[int] = None,
     ordinary ``PackedLeaf``, so single-process restore of a multi-host save
     needs no special casing.
 
+    Each stored byte is read once, into the buffer the leaf's payload is
+    (a writable ``bytearray``, fresh each call), so the caller moves it
+    on without a host copy.  A payload a delta patched carries
+    ``checksum`` None: no stored crc covers it.
+
     Integrity: every full payload and every delta patch is crc-checked as
-    read; the reconstructed payload is a pure function of verified bytes.
+    read, before the walk returns; the reconstructed payload is a pure
+    function of verified bytes.
 
     ``io_stats``: optional dict accumulating the readers' I/O accounting
-    (``bytes_read`` / ``parity_bytes`` / ``parity_rebuild_bytes``) — the
-    resilience-level report uses it to attribute restore bytes to the L3
-    parity level vs plain L4 store reads — and ``superseded_bytes``: the
-    bytes read that a later entry of the same walk wrote over (a delta
-    patch, a payload replaced), read for nothing.
+    (``bytes_read`` / ``parity_bytes`` / ``parity_rebuild_bytes`` /
+    ``read_into_bytes``, the bytes read from a shard file straight into a
+    leaf's buffer) — the resilience-level report uses it to attribute
+    restore bytes to the L3 parity level vs plain L4 store reads — and
+    ``superseded_bytes``: the bytes read that a later entry of the same
+    walk wrote over (a delta patch, a payload replaced), read for nothing;
+    ``delta_chunks`` and ``delta_runs``: the chunks the deltas patched and
+    the runs of consecutive chunks they were read as.
     """
     if step is None:
         # same visibility rule as latest(): an uncommitted coordinated
@@ -1007,13 +1138,9 @@ def load_checkpoint_raw(root: str, step: Optional[int] = None,
     manifest = read_manifest(root, step)
     todo = chain_steps(manifest) + [step]
 
-    # chain-walk state, keyed (name,) for whole leaves and
-    # (name, start, stop) for coordinated segments
-    payloads: Dict[Tuple, np.ndarray] = {}      # mutable uint8 buffers
-    meta: Dict[Tuple, Dict[str, Any]] = {}
+    walk = _ChainWalk()
     leafinfo: Dict[str, Dict[str, Any]] = {}
     order: List[str] = []
-    superseded = 0
     for s in todo:
         m = manifest if s == step else read_manifest(root, s)
         d = os.path.join(root, f"step_{s}")
@@ -1027,22 +1154,10 @@ def load_checkpoint_raw(root: str, step: Optional[int] = None,
                                       "dtype": e["dtype"]}
                 if e.get("encoding") == "segmented":
                     for seg in e["segments"]:
-                        raw = reader.read(seg)
-                        if zlib.crc32(raw) != seg["checksum"]:
-                            raise IOError(
-                                f"checksum mismatch for leaf {name} segment "
-                                f"[{seg['start']}, {seg['stop']}) at step "
-                                f"{s}")
                         key = (name, int(seg["start"]), int(seg["stop"]))
-                        superseded += _apply_chain_entry(
-                            key, dict(seg, name=name), raw, s, payloads, meta)
+                        walk.read(reader, key, dict(seg, name=name), s)
                     continue
-                raw = reader.read(e)
-                if zlib.crc32(raw) != e["checksum"]:
-                    raise IOError(f"checksum mismatch for leaf {name} "
-                                  f"at step {s}")
-                superseded += _apply_chain_entry((name,), e, raw, s,
-                                                 payloads, meta)
+                walk.read(reader, (name,), e, s)
         finally:
             if io_stats is not None:
                 for k, v in reader.stats.items():
@@ -1050,13 +1165,11 @@ def load_checkpoint_raw(root: str, step: Optional[int] = None,
             reader.close()
 
     if io_stats is not None:
-        io_stats["superseded_bytes"] = (io_stats.get("superseded_bytes", 0)
-                                        + superseded)
-    by_name: Dict[str, List[Tuple[Tuple, Dict[str, Any], np.ndarray]]] = {}
-    for key, buf in payloads.items():
-        if key not in meta:
-            raise IOError(f"leaf {key[0]} has deltas but no base entry")
-        by_name.setdefault(key[0], []).append((key, meta[key], buf))
+        for k in ("superseded_bytes", "delta_chunks", "delta_runs"):
+            io_stats[k] = io_stats.get(k, 0) + getattr(walk, k)
+    by_name: Dict[str, List[Tuple[Tuple, Dict[str, Any], bytearray]]] = {}
+    for key, buf in walk.payloads.items():
+        by_name.setdefault(key[0], []).append((key, walk.meta[key], buf))
 
     out = {}
     for name in order:
@@ -1064,11 +1177,11 @@ def load_checkpoint_raw(root: str, step: Optional[int] = None,
         if pieces is None:
             continue
         if len(pieces) == 1 and len(pieces[0][0]) == 1:   # plain whole leaf
-            _, e, buf = pieces[0]
-            payload = buf.tobytes()
-            e = dict(e)
-            e["checksum"] = zlib.crc32(payload)  # chain integrity above
-            out[name] = _entry_to_packed(e, payload)
+            key, e, buf = pieces[0]
+            # the walk's buffer itself, writable: ``from_host`` moves it
+            # without a host copy
+            out[name] = _entry_to_packed(
+                e, buf, None if key in walk.patched else e["checksum"])
         else:
             out[name] = _merge_segments(
                 name, leafinfo[name]["shape"], leafinfo[name]["dtype"],

@@ -35,7 +35,7 @@ import torch
 
 from repro_torch import _tree
 from repro_torch import obs as obs_mod
-from repro_torch._tensors import from_host
+from repro_torch._tensors import from_host, host_copy_nbytes
 from repro_torch.kernels.mask_pack import ops as mask_ops
 from repro_torch.kernels.mask_pack.ref import BLOCK
 
@@ -354,10 +354,8 @@ def scatter_sharded_payload(payload: np.ndarray,
     shape = tuple(shape)
     n = int(np.prod(shape)) if shape else 1
     payload = np.asarray(payload).reshape(-1)
-    copied = (0 if payload.flags.writeable and payload.flags.c_contiguous
-              else payload.nbytes)
     with tracer.span("restore.h2d", bytes=payload.nbytes,
-                     host_copy_bytes=copied):
+                     host_copy_bytes=host_copy_nbytes(payload)):
         payload_dev = from_host(payload, dtype, device)
     with tracer.span("restore.scatter"):
         out = mask_ops.mask_scatter(payload_dev, words, n=n, fill=fill,

@@ -275,6 +275,195 @@ def test_device_restore_h2d_matches_reference(tmp_path):
 
 
 # --------------------------------------------------------------------------
+# the chain walk: each stored byte read once, into the leaf's buffer
+# --------------------------------------------------------------------------
+
+def _apply_delta_by_chunk(buf, idx, payload, chunk_bytes):
+    """The plain patch: one slice assignment per chunk."""
+    pay = np.frombuffer(payload, np.uint8)
+    spans = [(i * chunk_bytes, min((i + 1) * chunk_bytes, buf.size))
+             for i in np.asarray(idx, np.int64).tolist()]
+    if sum(e - s for s, e in spans) != pay.size:
+        raise IOError("delta patch length mismatch")
+    off = 0
+    for s, e in spans:
+        buf[s:e] = pay[off:off + e - s]
+        off += e - s
+
+
+# case → (chunks in a 40-chunk payload of 16-byte chunks, runs)
+_DELTAS = {
+    "sparse": ([1, 5, 6, 7, 20, 33], 4),
+    "dense": (np.setdiff1d(np.arange(40), [4, 17, 18]), 3),
+    "every_chunk": (np.arange(40), 1),
+    "short_last": ([2, 3, 38, 39], 2),
+    "empty": ([], 0),
+    "length_mismatch": ([1, 2, 9], 2),
+}
+
+
+@pytest.mark.parametrize("case", list(_DELTAS))
+def test_apply_delta_matches_per_chunk(case):
+    """``apply_delta`` copies a slice per run of consecutive chunks; it
+    patches what the per-chunk loop patches, on a numpy buffer and on the
+    chain walk's ``bytearray``, and a patch of the wrong length raises
+    before it writes."""
+    from repro_torch.checkpoint.packing import delta_runs
+    chunk = 16
+    n = chunk * 40 - (9 if case == "short_last" else 0)
+    rng = np.random.RandomState(3)
+    base = rng.randint(0, 256, n).astype(np.uint8)
+    idx = np.asarray(_DELTAS[case][0], np.int32)
+    plen = sum(min((i + 1) * chunk, n) - i * chunk for i in idx.tolist())
+    if case == "length_mismatch":
+        plen -= 1
+    payload = rng.randint(0, 256, plen).astype(np.uint8).tobytes()
+    starts, ends = delta_runs(idx, chunk, n)
+    assert len(starts) == _DELTAS[case][1]
+    got = base.copy()
+    if case == "length_mismatch":
+        with pytest.raises(IOError):
+            _apply_delta_by_chunk(base.copy(), idx, payload, chunk)
+        with pytest.raises(IOError, match="length mismatch"):
+            TC.apply_delta(got, idx, payload, chunk)
+        assert got.tobytes() == base.tobytes()
+        return
+    want = base.copy()
+    _apply_delta_by_chunk(want, idx, payload, chunk)
+    TC.apply_delta(got, idx, payload, chunk)
+    assert got.tobytes() == want.tobytes()
+    buf = bytearray(base.tobytes())
+    TC.apply_delta(buf, idx, payload, chunk)
+    assert bytes(buf) == want.tobytes()
+
+
+def _four_steps(d, writer="port", level=None):
+    """Steps 1–4 of a state whose critical ``w`` elements and whole ``f``
+    leaf change each step: with the default level a base at 1 and 3, a
+    delta at 2 and 4.  Returns the host states by step and a zeros-like
+    state for restores."""
+    np_state, masks = _case("float32", 0.3)
+    np_state["f"] = _vals(600, "float32", 5)
+    masks["f"] = np.ones(600, bool)                 # stored full
+    hot = np.flatnonzero(masks["w"])[:6]
+    level = level or dict(keep_n=5, max_chain=1)
+    t_state = state_from_numpy(np_state, "cpu")
+    rep_t = report_from_masks(masks, t_state)
+    rep_r = _r_report(np_state, masks)
+    states = {}
+    w, f = np_state["w"].reshape(-1).copy(), np_state["f"].copy()
+    with (RC.CheckpointManager([RC.Level(d, **level)],
+                               scrutiny_fn=lambda s: rep_r,
+                               save_mode="device")
+          if writer == "reference" else
+          TC.CheckpointManager([TC.Level(d, **level)],
+                               scrutiny_fn=lambda s: rep_t,
+                               device="cpu")) as mgr:
+        for step in (1, 2, 3, 4):
+            w, f = w.copy(), f.copy()
+            w[hot] += step
+            f[step * 100:step * 100 + 50] += step
+            cur = dict(np_state, w=w.reshape(40, 100), f=f)
+            states[step] = {k: np.where(masks[k].reshape(v.shape), v,
+                                        np.zeros((), v.dtype))
+                            if k in masks else v for k, v in cur.items()}
+            mgr.save(step, _j(cur) if writer == "reference"
+                     else state_from_numpy(cur, "cpu"), block=True)
+    return states, {k: torch.zeros_like(v) for k, v in t_state.items()}
+
+
+@pytest.mark.parametrize("mode", ["host", "device"])
+@pytest.mark.parametrize("flip", ["base", "delta"])
+def test_flipped_byte_raises_and_restore_falls_back(tmp_path, flip, mode):
+    """A byte flipped in a base entry, or in a delta's patch, fails the
+    walk's crc check; ``restore`` skips every step that reads it and
+    restores the next complete one."""
+    d = str(tmp_path)
+    states, like = _four_steps(d)
+    assert [TC.chain_steps(TC.read_manifest(d, s)) for s in (1, 2, 3, 4)] \
+        == [[], [1], [], [3]]
+    bad = 3 if flip == "base" else 4
+    [e] = [e for e in TC.read_manifest(d, bad)["leaves"] if e["name"] == "w"]
+    assert (e["encoding"] == "delta") == (flip == "delta")
+    assert int(e["length"]) > 0
+    path = os.path.join(d, f"step_{bad}", f"shard_{e['shard']}.bin")
+    with open(path, "r+b") as fh:
+        at = int(e["offset"]) + int(e["length"]) // 2
+        fh.seek(at)
+        b = fh.read(1)
+        fh.seek(at)
+        fh.write(bytes([b[0] ^ 0x40]))
+    with pytest.raises(IOError, match=f"checksum mismatch for leaf w at "
+                                      f"step {bad}"):
+        TC.load_checkpoint_raw(d, 4)
+    with TC.CheckpointManager([TC.Level(d, keep_n=0)], restore_mode=mode,
+                              device="cpu") as tm:
+        step, got = tm.restore(like)
+        skipped = tm.last_restore_stats["skipped"]
+    want = bad - 1
+    assert step == want
+    assert [s["step"] for s in skipped] == list(range(4, want, -1))
+    assert all("checksum mismatch" in s["error"] for s in skipped)
+    for k, v in states[want].items():
+        assert to_host(got[k]).tobytes() == np.asarray(v).tobytes(), k
+
+
+@pytest.mark.parametrize("torn", [None, "missing", "truncated"])
+def test_reference_chain_restores_byte_identical(tmp_path, torn):
+    """A chain written by the reference's writer (the step directory's
+    format, which the port's writer matches byte for byte) restores to the
+    same bytes in both modes, with the base's largest shard intact, gone or
+    cut short (rebuilt from parity).  The walk reads every byte straight
+    into its leaf's buffer except those a rebuilt shard serves, and moves
+    the payloads without a host copy."""
+    d = str(tmp_path)
+    states, like = _four_steps(
+        d, "reference", dict(keep_n=5, max_chain=3, shards=2, parity=True))
+    assert TC.chain_steps(TC.read_manifest(d, 4)) == [1, 2, 3]
+    if torn is not None:
+        path = max((os.path.join(d, "step_1", f"shard_{k}.bin")
+                    for k in (0, 1)), key=os.path.getsize)
+        if torn == "missing":
+            os.remove(path)
+        else:
+            os.truncate(path, os.path.getsize(path) // 2)
+    for mode in ("host", "device"):
+        with TC.CheckpointManager([TC.Level(d, keep_n=0)],
+                                  restore_mode=mode, device="cpu") as tm:
+            step, got = tm.restore(like)
+            stats = tm.last_restore_stats
+        assert step == 4 and not stats["skipped"]
+        for k, v in states[4].items():
+            assert to_host(got[k]).tobytes() == np.asarray(v).tobytes(), k
+        parity = stats["level_bytes"]["l3_parity"]
+        assert (parity > 0) == (torn is not None)
+        assert stats["read_into_bytes"] == stats["bytes_read"] - parity
+        assert stats["host_copy_bytes"] == 0
+        assert 0 < stats["delta_runs"] <= stats["delta_chunks"]
+
+
+def test_two_restores_share_no_storage(tmp_path):
+    """On the CPU a restored tensor may hold the walk's buffer itself (it
+    moves without a host copy), so each restore reads into buffers of its
+    own: two restores of one step share no memory, and writing into one
+    leaves the other as restored."""
+    d = str(tmp_path)
+    states, like = _four_steps(d)
+    for mode in ("host", "device"):
+        with TC.CheckpointManager([TC.Level(d, keep_n=0)],
+                                  restore_mode=mode, device="cpu") as tm:
+            _, a = tm.restore(like)
+            _, b = tm.restore(like)
+        ptrs = [{t.untyped_storage().data_ptr() for t in x.values()}
+                for x in (a, b)]
+        assert not ptrs[0] & ptrs[1], mode
+        for t in a.values():
+            t.fill_(7)
+        for k, v in states[4].items():
+            assert to_host(b[k]).tobytes() == np.asarray(v).tobytes(), k
+
+
+# --------------------------------------------------------------------------
 # snapshot isolation: mutate right after save(block=False)
 # --------------------------------------------------------------------------
 

@@ -14,8 +14,9 @@ size on the CPU, float32, seeded random weights:
 - a device-mode save, three deltas and a device restore give the critical
   elements back bit for bit;
 - ``superseded_bytes``, the chain walk's bytes patched over by a later
-  delta, against a count by hand, and its counter; the spans ``ssm.scan``
-  and ``ssm.step``;
+  delta, against a count by hand, and its counter; the walk's single read
+  (``read_into_bytes``, ``delta_chunks``, ``delta_runs``, no host copy)
+  by hand; the spans ``ssm.scan`` and ``ssm.step``;
 - the port-only names are not the reference's, and each builds an engine.
 
 Participation (``core/taint.py``) on the Mamba-2 decode step: every aten
@@ -312,14 +313,15 @@ def test_device_save_three_deltas_and_restore(tmp_path):
     assert 0 < stats["superseded_bytes"] < stats["bytes_read"]
 
 
-def test_superseded_bytes_by_hand(tmp_path, obs_on):
+def _by_hand_chain(root, **restore_kw):
     """A chain of a base and three deltas in 64-byte chunks.  ``rew`` (64
     f32, all critical) is rewritten each step: each delta patches its 256
     bytes over the last one's.  ``app`` (8 rows of 16 f32, rows < 4
     critical) gets a row appended past its stored rows: no delta carries
     it.  ``kv`` (the same, all 8 rows critical) gets row 4 + step
     appended inside its stored rows: each delta patches one 64-byte chunk
-    of zeros the base read."""
+    of zeros the base read.  Restores the newest step and returns the
+    restore's stats."""
     rng = np.random.RandomState(0)
     app = np.zeros((8, 16), np.float32)
     app[:4] = rng.randn(4, 16)
@@ -331,10 +333,9 @@ def test_superseded_bytes_by_hand(tmp_path, obs_on):
     masks = {"rew": np.ones(64, bool), "app": rows4.reshape(-1),
              "kv": np.ones(128, bool)}
     rep = report_from_masks(masks, state)
-    root = str(tmp_path)
     with CheckpointManager([Level(root, keep_n=5, max_chain=3)],
                            scrutiny_fn=lambda s: rep, device="cpu",
-                           delta_chunk_bytes=64) as mgr:
+                           delta_chunk_bytes=64, **restore_kw) as mgr:
         mgr.save(0, state, block=True)
         for step in range(1, 4):
             state = {"rew": torch.from_numpy(
@@ -344,7 +345,14 @@ def test_superseded_bytes_by_hand(tmp_path, obs_on):
             state["kv"][3 + step] = 1.0
             mgr.save(step, state, block=True)
         mgr.restore(_map(torch.zeros_like, state))
-        stats = mgr.last_restore_stats
+        return mgr.last_restore_stats
+
+
+def test_superseded_bytes_by_hand(tmp_path, obs_on):
+    """``superseded_bytes`` of :func:`_by_hand_chain`'s walk, counted by
+    hand: ``rew``'s three patches, ``kv``'s three chunks of zeros."""
+    root = str(tmp_path)
+    stats = _by_hand_chain(root)
     base = 256 + 4 * 64 + 8 * 64
     assert stats["bytes_read"] == base + 3 * (256 + 64)
     assert stats["superseded_bytes"] == 3 * 256 + 0 + 3 * 64
@@ -358,6 +366,25 @@ def test_superseded_bytes_by_hand(tmp_path, obs_on):
     io = {}
     load_checkpoint_raw(root, 0, io_stats=io)
     assert io["superseded_bytes"] == 0
+
+
+def test_walk_reads_once_by_hand(tmp_path, obs_on):
+    """A device-mode restore of :func:`_by_hand_chain`: every byte read
+    straight into its leaf's buffer (no parity rebuild), ``rew``'s four
+    chunks a delta read as one run, ``kv``'s one chunk as one, and no
+    payload copied on the host, on the device path (``app``) or the host
+    expand (``rew``, ``kv``, stored full); the counters agree."""
+    stats = _by_hand_chain(str(tmp_path), restore_mode="device")
+    assert stats["device_leaves"] == 1
+    assert stats["read_into_bytes"] == stats["bytes_read"] == \
+        256 + 4 * 64 + 8 * 64 + 3 * (256 + 64)
+    assert stats["delta_chunks"] == 3 * 4 + 3 * 1
+    assert stats["delta_runs"] == 3 * 1 + 3 * 1
+    assert stats["host_copy_bytes"] == 0
+    reg = obs_on.registry
+    for k in ("read_into_bytes", "delta_chunks", "delta_runs",
+              "host_copy_bytes"):
+        assert reg.counter(f"restore.{k}").value == stats[k], k
 
 
 def test_port_only_names_are_not_the_references():
